@@ -1,0 +1,95 @@
+"""Move parameters and store state between numpy trees and the port.
+
+`params_from_numpy` takes a model parameter tree of numpy arrays — the
+layout ``repro.models.model.init_model`` produces, after
+``jax.device_get`` — and returns the port's tree, so both packages then
+compute the same function. `state_from_numpy` / `state_to_numpy` convert
+a ``BatchedKVStoreState`` field by field (by name), which is how the
+tests hold the port's store against the reference. bfloat16 arrays
+(``ml_dtypes``) are carried bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compute_plane import tree_map
+from repro_torch.core.daemon_store import BatchedKVStoreState, SeqState
+from repro_torch.core.engine import EngineState
+from repro_torch.core.fabric import FabricState, LinkModel
+from repro_torch.core.residency import ResidencyState
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import padded_vocab
+
+
+def to_tensor(a, device, dtype=None) -> torch.Tensor:
+    """numpy array (bfloat16 included) -> tensor on `device`."""
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
+    return t if dtype is None or not t.is_floating_point() else t.to(dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor -> numpy; bfloat16 widens to float32 (exactly)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device=None, dtype=None):
+    """The reference's parameter tree (numpy leaves) as the port's, on
+    the card unless `device` says otherwise; `dtype` optionally casts the
+    floating leaves."""
+    device = resolve_device(device)
+    table = np.asarray(tree["embed"]["table"])
+    if table.shape != (padded_vocab(cfg.vocab_size), cfg.d_model):
+        raise ValueError(f"embedding table {table.shape} does not match "
+                         f"{cfg.name}")
+    return tree_map(lambda a: to_tensor(a, device, dtype), tree)
+
+
+def _named(cls, src, fn):
+    return cls(**{f: fn(getattr(src, f)) for f in cls._fields})
+
+
+def state_from_numpy(state, device=None) -> BatchedKVStoreState:
+    """A batched store state with numpy leaves (e.g. the reference's,
+    after `jax.device_get`) -> the port's; fields are matched by name."""
+    device = resolve_device(device)
+
+    def conv(a):
+        return to_tensor(a, device)
+
+    s = state.seqs
+    seqs = SeqState(
+        kpool=conv(s.kpool), vpool=conv(s.vpool),
+        res=_named(ResidencyState, s.res, conv),
+        eng=_named(EngineState, s.eng, conv),
+        stats={k: conv(v) for k, v in s.stats.items()},
+        tel=None)
+    fab = FabricState(
+        **{f: conv(getattr(state.fab, f))
+           for f in FabricState._fields if f != "link"},
+        link=_named(LinkModel, state.fab.link, conv))
+    return BatchedKVStoreState(seqs=seqs, fab=fab, clock=conv(state.clock))
+
+
+def state_to_numpy(state: BatchedKVStoreState) -> dict:
+    """The port's store state as a nested dict of numpy arrays, keyed by
+    field name (bfloat16 pools widen to float32)."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return to_numpy(x)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return {f: walk(getattr(x, f)) for f in x._fields
+                    if getattr(x, f) is not None}
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        raise TypeError(type(x).__name__)
+    return walk(state)

@@ -1,0 +1,45 @@
+"""Device-dispatched entries for the store's kernels.
+
+`impl="auto"` launches the CUDA kernel on a CUDA tensor and runs the
+plain PyTorch version on a CPU tensor; `"cuda"` always launches the
+kernel (and so raises on a CPU tensor); `"ref"` always runs the plain
+version — for tests and for holding the kernels against it. There is no
+fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import paged_gather as _pg
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import residency_fused as _rf
+
+IMPLS = ("auto", "cuda", "ref")
+
+
+def _use_kernel(t, impl: str) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "cuda" or (impl == "auto" and t.is_cuda)
+
+
+def paged_gather(pool, idx, mask=None, impl: str = "auto"):
+    """pool[clamp(idx)] (L, *row); rows with mask False are zeros."""
+    if _use_kernel(pool, impl):
+        return _pg.paged_gather(pool, idx, mask)
+    return _ref.paged_gather(pool, idx, mask)
+
+
+def paged_scatter(pool, idx, pages, *, mode=None):
+    """Page-plane pool write, in place — masked torch indexing on every
+    device (the bulk page plane has no kernel; see paged_gather.py)."""
+    return _ref.paged_scatter(pool, idx, pages, mode=mode)
+
+
+def residency_fused(res, kpool, vpool, remote_k, remote_v, landed,
+                    landed_pages, needed_pages, needed_writes, clock, pol,
+                    impl: str = "auto"):
+    """The fused per-step residency transaction; see
+    ref.fused_residency_step for the contract (pools update in place)."""
+    fn = (_rf.fused_residency_step if _use_kernel(kpool, impl)
+          else _ref.fused_residency_step)
+    return fn(res, kpool, vpool, remote_k, remote_v, landed, landed_pages,
+              needed_pages, needed_writes, clock, pol)

@@ -1,0 +1,137 @@
+"""Plain PyTorch versions of the store's kernels.
+
+These are the ground truth the CUDA kernels are held to (bit for bit, on
+the card) and what the wrappers in `ops` run on CPU tensors. They follow
+``repro.kernels.ref`` op for op, with two PyTorch-side conventions:
+
+* gathers index as jnp does — a negative index counts from the end and
+  an index past the table is clamped, as XLA's gather clamps (torch
+  indexing would raise instead);
+* the pools are updated IN PLACE (`paged_scatter`,
+  `fused_residency_step`), as the CUDA kernel updates them. A caller that
+  still needs the old pool passes a clone.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import residency
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+def paged_gather(pool, idx, mask=None):
+    """pool (P, *row), idx (L,) int -> (L, *row): pool[idx] as jnp
+    indexes — a negative index counts from the end, then the index is
+    clamped to [0, P-1].
+
+    `mask` (L,) bool, optional: rows where it is False are not read and
+    come out as zeros."""
+    p = pool.shape[0]
+    idx = idx.long()
+    rows = pool[torch.clamp(torch.where(idx < 0, idx + p, idx), 0, p - 1)]
+    if mask is None:
+        return rows
+    keep = mask.reshape((-1,) + (1,) * (rows.ndim - 1))
+    return torch.where(keep, rows, torch.zeros((), dtype=rows.dtype,
+                                               device=rows.device))
+
+
+def paged_scatter(pool, idx, pages, *, mode=None):
+    """pool[idx] = pages IN PLACE, as jnp's `.at[idx].set` (its default
+    and mode="drop" alike): a negative index counts from the end, and a
+    lane whose index is still outside [0, P) is dropped — it can never
+    clobber a live lane that shares a slot with it. Returns `pool`.
+
+    No lane is selected on the host: a dropped lane rewrites the first
+    live lane's value at the first live lane's slot (or, when no lane is
+    live, the pool's own value at its clamped slot), so every duplicate
+    target receives one value and the scatter stays deterministic. Live
+    lanes must target distinct slots."""
+    del mode    # jnp drops out-of-bounds lanes under both modes
+    p = pool.shape[0]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + p, idx)
+    live = (idx >= 0) & (idx < p)
+    clamped = torch.clamp(idx, 0, p - 1)
+    first = live.to(I32).argmax().reshape(1)
+    any_live = live.any()
+    tgt = torch.where(live, idx,
+                      torch.where(any_live, idx.index_select(0, first),
+                                  clamped))
+    lane_shape = (-1,) + (1,) * (pages.ndim - 1)
+    val = torch.where(any_live,
+                      pages.index_select(0, first).to(pool.dtype),
+                      pool[clamped])
+    val = torch.where(live.reshape(lane_shape), pages.to(pool.dtype), val)
+    pool[tgt] = val
+    return pool
+
+
+def fused_residency_step(res, kpool, vpool, remote_k, remote_v, landed,
+                         landed_pages, needed_pages, needed_writes, clock,
+                         pol):
+    """The whole per-step residency transaction for B sequences.
+
+    Landing (compaction of the arrived in-flight slots, victim selection,
+    dirty-eviction enqueue, pool scatter of the arrived remote pages),
+    then the CAM lookup (probe gated by `ready <= clock`, pool gather for
+    every request, policy touch and dirty propagation on hits).
+
+    `res` leaves (B, S, W); kpool/vpool (B, N, *row) with N = S*W slots,
+    updated IN PLACE; landed/landed_pages (B, P); needed_pages /
+    needed_writes (B, R); remote_k/remote_v (PR, *row); `clock` 0-d f32;
+    `pol` PolicyFlags.
+
+    The reference skips the landing with `lax.cond` when nothing arrived;
+    here every lane is masked instead, which gives the same result without
+    a host read. Returns (res', kpool, vpool, evicted (B, k) int32 dirty
+    victims' page ids (-1 pad), n_evictions (B,) f32, k_local/v_local
+    (B, R, *row), local_hit (B, R) bool), k = min(P, N). A miss gathers
+    slot (page % S) * W, as the reference does.
+    """
+    b, s_sets, w_ways = res.page.shape
+    n = s_sets * w_ways
+    k_land = min(int(landed.shape[1]), n)
+    landed = landed.to(torch.bool)
+
+    # ---- landing: lane j <- the j-th landed slot (stable compaction)
+    order = torch.sort((~landed).to(I32), dim=1, stable=True).indices
+    pick = order[:, :k_land]
+    do = landed.gather(1, pick)
+    pids = landed_pages.to(I32).gather(1, pick)
+    rows = torch.clamp(pids, min=0).reshape(-1)
+    page_k = paged_gather(remote_k, rows).to(kpool.dtype)
+    page_v = paged_gather(remote_v, rows).to(vpool.dtype)
+    sets, vways, ok = residency.landing_victims(res, pids, pol)
+    do = do & ok
+    vflat = (sets * w_ways + vways).long()
+    vict_page = residency._flat(res.page).gather(1, vflat)
+    vict_dirty = residency._flat(res.dirty).gather(1, vflat)
+    resident = vict_page >= 0
+    evicted = torch.where(do & vict_dirty & resident, vict_page, -1)
+    n_ev = (do & resident).sum(dim=1).to(F32)
+    base = torch.arange(b, device=vflat.device)[:, None] * n
+    vslot = torch.where(do, base + vflat, b * n).reshape(-1)  # n: drop
+    row = tuple(kpool.shape[2:])
+    paged_scatter(kpool.view((b * n,) + row), vslot, page_k, mode="drop")
+    paged_scatter(vpool.view((b * n,) + row), vslot, page_v, mode="drop")
+    res = residency.insert(res, sets, vways, pids, now=clock, ready=clock,
+                           dirty=False, gate=do)
+
+    # ---- CAM probe (after landing: a page landing now hits now)
+    present, set_idx, way, ready_ok = residency.lookup(res, needed_pages,
+                                                       clock)
+    local_hit = present & ready_ok
+    slot = (base + (set_idx * w_ways + way)).reshape(-1)
+    r = needed_pages.shape[1]
+    k_local = paged_gather(kpool.view((b * n,) + row), slot).reshape(
+        (b, r) + row)
+    v_local = paged_gather(vpool.view((b * n,) + row), slot).reshape(
+        (b, r) + row)
+    res = residency.touch(res, set_idx, way, clock, pol, gate=local_hit)
+    res = residency.mark_dirty(res, set_idx, way, needed_writes.to(
+        torch.bool), gate=local_hit)
+    return (res, kpool, vpool, evicted.to(I32), n_ev, k_local, v_local,
+            local_hit)

@@ -26,3 +26,7 @@ def pytest_configure(config):
         "markers",
         "heavycompile: whole-model-XLA-compile tests; CI runs these in "
         "their own pytest process (see comment above)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the repro_torch kernels); skips "
+        "without one")

@@ -6,18 +6,23 @@ Builds the port's CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a,
 into build/repro_torch/), holds each kernel bit for bit against its plain
 PyTorch version, drives a 48-step store run through both, serves
 full-width qwen3-1.7b through `serve_batch_paged` with the DaeMon KV
-store in the loop, and checks the result. It imports nothing of JAX or of
-the reference package.
+store in the loop, then trains it: the card against the CPU on reduced
+qwen3-1.7b, and four steps at full width with the int8-compressed
+pod-gradient sync on the block-int8 kernels. It checks every result and
+imports nothing of JAX or of the reference package.
 
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches on
-the serving run, its time against its bound, the plain version's time
-and the library call's; and last `{"ok": true, "device": {...}}`. Any
-failure raises and exits non-zero before those lines. Without a CUDA
-device, or without the repository around it, it exits non-zero at once.
+its path (serving for the store's kernels, training for the quantizer,
+its own phase for BDI, which no path reaches), its time against its
+bound, the plain version's time and the library call's; and last
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
+before those lines. Without a CUDA device, or without the repository
+around it, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -36,19 +41,28 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core import compression  # noqa: E402
 from repro_torch.core import daemon_store as DS  # noqa: E402
 from repro_torch.core import residency  # noqa: E402
 from repro_torch.core.engine import poll_arrivals  # noqa: E402
+from repro_torch.core.compute_plane import tree_leaves  # noqa: E402
 from repro_torch.core.fabric import FabricConfig  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, synthetic_batch  # noqa
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import bdi as BDI  # noqa: E402
 from repro_torch.kernels import paged_gather as PG  # noqa: E402
+from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
 from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
                                       init_decode_state, init_model)
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.runtime.serve_loop import (  # noqa: E402
     PagedServeConfig, ServeConfig, make_decode_fn, paged_request_window,
     serve_batch_paged)
+from repro_torch.runtime.train_loop import (  # noqa: E402
+    TrainConfig, make_grads_fn, make_train_step, split_pods)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM device memory, bytes/ms
@@ -130,13 +144,17 @@ def device_phase():
     return name, smi
 
 
+KERNELS = (PG.KERNEL, RF.KERNEL) + QD.KERNELS + BDI.KERNELS
+
+
 def build_phase():
-    secs = _build.build_all([PG.KERNEL, RF.KERNEL])
+    secs = _build.build_all(KERNELS)
     phase("build", seconds=f"{secs:.2f}", dir=_build.BUILD_DIR)
-    for k in (PG.KERNEL, RF.KERNEL):
-        for line in k.build_log.splitlines():
+    logs = {k.source: k.build_log for k in KERNELS}
+    for source, log in logs.items():
+        for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
-                print(f"  {k.source}: {line.strip()}")
+                print(f"  {source}: {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -471,7 +489,7 @@ def split_phase(cfg, params, prompts):
     ms = {k: 1e3 * float(np.mean(v)) for k, v in parts.items()}
     phase("step_split_ms", **{k: f"{v:.3f}" for k, v in ms.items()},
           store_total=f"{ms['transact'] + ms['remote_fetch'] + ms['schedule']:.3f}")
-    return k1_inputs, ms
+    return k1_inputs, ms, state["runs"][0]["k"]
 
 
 def k1_timing(k1_inputs, err):
@@ -523,6 +541,320 @@ def k1_timing(k1_inputs, err):
     return rec
 
 
+# ------------------------------------------------------------ phase 6: K3
+EMB_ROWS = 152064 * 2048 // 256     # qwen3-1.7b's embedding table in blocks
+QBLOCK = 256
+
+
+def _grad_like(gen, rows, block=QBLOCK):
+    """Gradient-like rows: normal values, per-row magnitudes over nine
+    decades."""
+    mag = 10.0 ** torch.randint(-8, 1, (rows, 1), generator=gen, device=DEV)
+    return torch.randn((rows, block), generator=gen, device=DEV) * mag
+
+
+def _tie_rows(block=QBLOCK):
+    """An all-zero row, and rows of exact .5 ties at scale 1 and 2."""
+    ties = torch.arange(block, device=DEV) % 254 - 127 + 0.5
+    ties[0] = 127.0
+    return torch.stack([torch.zeros(block, device=DEV), ties, 2 * ties])
+
+
+def check_qdq(x):
+    """K3 on x against the plain versions: q, scale, and the dequantized
+    f32 and bf16 outputs, all bit for bit. Returns (q, scale, quantize's
+    max |err|, dequantize's max |err|)."""
+    q, s = QD.quantize_block_int8(x)
+    rq, rs = REF.quantize_block_int8(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, rq) and torch.equal(s, rs)):
+        raise AssertionError(f"quantize_block_int8 != plain at {tuple(x.shape)}")
+    err_d = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        d = QD.dequantize_block_int8(q, s, dt)
+        rd = REF.dequantize_block_int8(q, s, dt)
+        if not torch.equal(d, rd):
+            raise AssertionError(f"dequantize_block_int8 ({dt}) != plain")
+        err_d = max(err_d, max_abs_err([d], [rd]))
+    return q, s, max_abs_err([q, s], [rq, rs]), err_d
+
+
+def qdq_phase(gen):
+    """K3 bit for bit: a ragged N (13 rows) holding an all-zero row and
+    exact .5 ties, and the largest gradient leaf at full width (the
+    152064 x 2048 embedding table as 1,216,512 rows of 256); timed on the
+    latter."""
+    small = _grad_like(gen, 13)
+    small[:3] = _tie_rows()
+    q, s, eq0, ed0 = check_qdq(small)
+    if float(s[0, 0]) != 1.0 or float(s[1, 0]) != 1.0 or float(s[2, 0]) != 2.0:
+        raise AssertionError("zero-row / tie-row scales are not 1, 1, 2")
+    x = _grad_like(gen, EMB_ROWS)
+    q, s, eq1, ed1 = check_qdq(x)
+    n, b = x.shape
+    bytes_q = n * b * 4 + n * b + n * 4       # read f32, write int8 + scale
+    bytes_d = n * b + n * 4 + n * b * 4       # read int8 + scale, write f32
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/qdq_int8.cu",
+              "library_ms": None, "bound_by": "bytes"}
+    k3q = {"name": "quantize_block_int8", **common,
+           "max_abs_err": max(eq0, eq1),
+           "replaces": "src/repro/kernels/qdq_int8.py:34",
+           "ms": device_ms(lambda: QD.quantize_block_int8(x)),
+           "plain_ms": device_ms(lambda: REF.quantize_block_int8(x), iters=3,
+                                 replays=3),
+           "bound_ms": bytes_q / HBM_BYTES_PER_MS}
+    k3d = {"name": "dequantize_block_int8", **common,
+           "max_abs_err": max(ed0, ed1),
+           "replaces": "src/repro/kernels/qdq_int8.py:52",
+           "ms": device_ms(lambda: QD.dequantize_block_int8(q, s)),
+           "plain_ms": device_ms(lambda: REF.dequantize_block_int8(q, s),
+                                 iters=3, replays=3),
+           "bound_ms": bytes_d / HBM_BYTES_PER_MS}
+    bf16_ms = device_ms(lambda: QD.dequantize_block_int8(q, s, torch.bfloat16))
+    phase("qdq_int8", exact=True, cases=f"13x256(zero,ties),{n}x{b}",
+          out_dtypes="f32,bf16", quant_ms=k3q["ms"],
+          quant_plain_ms=k3q["plain_ms"], quant_bound_ms=k3q["bound_ms"],
+          dequant_ms=k3d["ms"], dequant_plain_ms=k3d["plain_ms"],
+          dequant_bound_ms=k3d["bound_ms"], dequant_bf16_ms=bf16_ms,
+          dequant_bf16_bound_ms=(n * b * 3 + n * 4) / HBM_BYTES_PER_MS)
+    return k3q, k3d
+
+
+# ------------------------------------------------------------ phase 7: K4
+BDI_ROWS = 262144                   # a 256 MiB page plane of int32 words
+
+
+def _bdi_rows(gen, rows, block=256):
+    """Half base + small deltas, a quarter whose x - base overflows
+    int32 and wraps to a small delta, a quarter random words."""
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV,
+                             dtype=torch.int64)
+    h, q = rows // 2, rows // 4
+    d = ri(-128, 128, (h, block))
+    d[:, 0] = 0
+    small = ri(-2 ** 30, 2 ** 30, (h, 1)) + d
+    wrap = -2 ** 31 + ri(0, 100, (q, block))
+    wrap[:, 0] = 2 ** 31 - 1
+    rand = ri(-2 ** 31, 2 ** 31 - 1, (rows - h - q, block))
+    return torch.cat([small, wrap, rand]).to(torch.int32)
+
+
+def check_bdi(x):
+    """K4 on x against the plain versions, bit for bit, decompressing
+    from x itself and from a raw copy that differs. Returns (the
+    compressed triple, compress's max |err|, decompress's max |err|)."""
+    got = BDI.bdi_compress(x)
+    want = REF.bdi_compress(x)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("base", "deltas", "ok"), got, want):
+        if not torch.equal(a, c):
+            raise AssertionError(f"bdi_compress != plain on {name}")
+    err_d = 0.0
+    for raw in (x, torch.roll(x, 1, 0)):
+        d = BDI.bdi_decompress(*got, raw)
+        rd = REF.bdi_decompress(*got, raw)
+        if not torch.equal(d, rd):
+            raise AssertionError("bdi_decompress != plain")
+        err_d = max(err_d, max_abs_err([d], [rd]))
+    if not torch.equal(BDI.bdi_decompress(*got, x), x):
+        raise AssertionError("bdi round trip lost data")
+    return got, max_abs_err(got, want), err_d
+
+
+def bdi_phase(gen, kcache):
+    """K4 bit for bit on compressible rows, rows whose x - base wraps,
+    random rows, and the serve phase's K cache (28 layers x 8 sequences
+    x 64 positions x 8 heads x 128, bf16) viewed as int32 rows of 256
+    words; timed on a 256 MiB mixed page plane. No path of either
+    package calls BDI: its launches are this phase's."""
+    for k in BDI.KERNELS:
+        k.launches = 0
+    (_, _, ok), ec0, ed0 = check_bdi(_bdi_rows(gen, 48))
+    if not (bool(ok[:36].all()) and not bool(ok[36:].any())):
+        raise AssertionError("BDI ok pattern: base+delta and wrapped rows "
+                             "must compress, random rows must not")
+    kc = kcache.contiguous().view(torch.int32).reshape(-1, 256)
+    (_, _, kc_ok), ec1, ed1 = check_bdi(kc)
+    x = _bdi_rows(gen, BDI_ROWS)
+    (base, deltas, okx), ec2, ed2 = check_bdi(x)
+    launches = [k.launches for k in BDI.KERNELS]
+    n, b = x.shape
+    n_raw = n - int((okx != 0).sum())
+    bytes_c = n * b * 4 + n * 4 + n * b + n
+    bytes_d = n * 4 + n * b + n + n_raw * b * 4 + n * b * 4
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/bdi.cu",
+              "library_ms": None, "bound_by": "bytes",
+              "path": "none in either package; launches are the [bdi] "
+                      "phase's own"}
+    k4c = {"name": "bdi_compress", **common,
+           "replaces": "src/repro/kernels/bdi.py:38", "launches": launches[0],
+           "max_abs_err": max(ec0, ec1, ec2),
+           "ms": device_ms(lambda: BDI.bdi_compress(x)),
+           "plain_ms": device_ms(lambda: REF.bdi_compress(x), iters=3,
+                                 replays=3),
+           "bound_ms": bytes_c / HBM_BYTES_PER_MS}
+    k4d = {"name": "bdi_decompress", **common,
+           "replaces": "src/repro/kernels/bdi.py:58", "launches": launches[1],
+           "max_abs_err": max(ed0, ed1, ed2),
+           "ms": device_ms(lambda: BDI.bdi_decompress(base, deltas, okx, x)),
+           "plain_ms": device_ms(lambda: REF.bdi_decompress(base, deltas,
+                                                            okx, x),
+                                 iters=3, replays=3),
+           "bound_ms": bytes_d / HBM_BYTES_PER_MS}
+    phase("bdi", exact=True, rows=f"48+{kc.shape[0]}(kcache)+{n}",
+          kcache_ok_rows=int((kc_ok != 0).sum()), plane_raw_rows=n_raw,
+          launches=launches, compress_ms=k4c["ms"],
+          compress_plain_ms=k4c["plain_ms"],
+          compress_bound_ms=k4c["bound_ms"], decompress_ms=k4d["ms"],
+          decompress_plain_ms=k4d["plain_ms"],
+          decompress_bound_ms=k4d["bound_ms"])
+    return k4c, k4d
+
+
+# ---------------------------------------------------------- phase 8: train
+TRAIN_SHAPE = ShapeConfig("chip_train", 1024, 4, "train")
+TRAIN_STEPS = 4
+TRAIN_PODS = 2
+
+
+def train_reference_phase():
+    """The card against the CPU on reduced qwen3-1.7b (f32): 3 steps of
+    dp_compress="int8" over 2 pods from the same params and batches,
+    through K3 on the card and the plain versions on the CPU; losses
+    within rtol 1e-4."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    opt = ModelOptions(remat="none")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=0,
+                       total_steps=10, dp_compress="int8", num_pods=2)
+    shape = ShapeConfig("t", 64, 4, "train")
+    batches = [synthetic_batch(cfg, shape, DataConfig(seed=0), s,
+                               device="cpu") for s in range(3)]
+    losses = {}
+    for where, dev in (("cpu", "cpu"), ("card", DEV)):
+        params = _to(init_model(cfg, torch.Generator().manual_seed(0)), dev)
+        opt_state = adamw_init(params)
+        step = make_train_step(cfg, opt, tcfg)
+        for k in QD.KERNELS:
+            k.launches = 0
+        out = []
+        for s, batch in enumerate(batches):
+            params, opt_state, m = step(params, opt_state, _to(batch, dev), s)
+            out.append(float(m["loss"]))
+        losses[where] = out
+        launches = [k.launches for k in QD.KERNELS]
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4)
+    if min(launches) <= 0:
+        raise AssertionError(f"reduced train did not launch K3: {launches}")
+    phase("train_reference", model="qwen3-1.7b-reduced f32", steps=3,
+          dp_compress="int8", pods=2, loss_card=losses["card"],
+          loss_cpu=losses["cpu"], k3_launches=launches,
+          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+
+def _rounding_bound(params, cfg, opt, batch):
+    """Pod 0's gradients of `batch` at `params`, quantized and
+    dequantized per leaf: the largest |dequantized - gradient| / scale.
+    Rounding to the int8 grid is within scale/2; the f32 division and
+    product add at most 254 ulps of scale (2^-16 covers them)."""
+    grads, _ = make_grads_fn(cfg, opt)(params, split_pods(batch,
+                                                          TRAIN_PODS)[0])
+    worst = 0.0
+    for g in tree_leaves(grads):
+        q, s = compression.quantize_block_int8(g, QBLOCK)
+        d = compression.dequantize_block_int8(q, s, g.shape, QBLOCK)
+        pad = (-g.numel()) % QBLOCK
+        err = (d.reshape(-1).double() - g.reshape(-1).double()).abs()
+        err = torch.nn.functional.pad(err, (0, pad)).reshape(-1, QBLOCK)
+        worst = max(worst, float((err / s.double()[:, None]).max()))
+        del q, s, d, err
+    return worst
+
+
+def train_phase():
+    """Full-width qwen3-1.7b: f32 master params, bf16 compute, remat
+    "full", 2 microbatches, dp_compress="int8" over 2 pods, AdamW lr
+    3e-4; 4 steps of global batch 4 x 1024 from the port's
+    synthetic_batch. The main path of the quantizer (K3)."""
+    cfg = get_config("qwen3-1.7b")
+    opt = ModelOptions(triangular_flash=True, remat="full")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4), warmup_steps=0,
+                       total_steps=TRAIN_STEPS, dp_compress="int8",
+                       num_pods=TRAIN_PODS, quant_block=QBLOCK)
+    dcfg = DataConfig(seed=0)
+    params = init_model(cfg, torch.Generator(device=DEV).manual_seed(0))
+    opt_state = adamw_init(params)
+    n_leaves = len(tree_leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step_fn = make_train_step(cfg, opt, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in QD.KERNELS:
+        k.launches = 0
+    losses, gnorms, secs = [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = synthetic_batch(cfg, TRAIN_SHAPE, dcfg, s, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, s)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = tuple(k.launches for k in QD.KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * TRAIN_PODS * n_leaves
+    if counts != (want, want):
+        raise AssertionError(f"K3 launches {counts}, the step predicts "
+                             f"{want} each")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        raise AssertionError(f"non-finite loss/grad_norm: {losses} {gnorms}")
+    worst = _rounding_bound(params, cfg, opt, batch)
+    if worst > 0.5 + 2 ** -16:
+        raise AssertionError(f"dequantized grads {worst} scales from the "
+                             "pod gradient, above 1/2")
+    tokens = TRAIN_SHAPE.global_batch * TRAIN_SHAPE.seq_len
+    phase("train", model="qwen3-1.7b", params=n_params, leaves=n_leaves,
+          batch=TRAIN_SHAPE.global_batch, seq=TRAIN_SHAPE.seq_len,
+          micro=cfg.grad_accum_microbatches, pods=TRAIN_PODS,
+          remat=opt.remat, dtype=cfg.dtype, loss=losses, grad_norm=gnorms,
+          step_s=[f"{t:.3f}" for t in secs],
+          tokens_per_s=f"{tokens * TRAIN_STEPS / sum(secs):.1f}",
+          tokens_per_s_after_first=f"{tokens * (TRAIN_STEPS - 1) / sum(secs[1:]):.1f}",
+          peak_gib=f"{peak / 2**30:.2f}", k3_launches=counts,
+          k3_launches_predicted=want,
+          max_dequant_err_over_scale=f"{worst:.6f}")
+    return tcfg, params, opt_state, step_fn, counts
+
+
+def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
+    """ms per full-width train step split into forward+backward, pod
+    sync (K3 quantize + dequantize + mean) and optimizer: host clock,
+    with a synchronize at each stage boundary of the step."""
+    cfg = get_config("qwen3-1.7b")
+    parts = {"forward_backward": 0.0, "pod_sync": 0.0, "optimizer": 0.0}
+    last = [0.0]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[stage] += now - last[0]
+        last[0] = now
+
+    for s in range(TRAIN_STEPS, TRAIN_STEPS + steps):
+        batch = synthetic_batch(cfg, TRAIN_SHAPE, DataConfig(seed=0), s,
+                                device=DEV)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batch, s,
+                                       on_stage=mark)
+    ms = {k: 1e3 * v / steps for k, v in parts.items()}
+    phase("train_split_ms", **{k: f"{v:.3f}" for k, v in ms.items()},
+          total=f"{sum(ms.values()):.3f}", steps=steps)
+    return ms
+
+
 def main():
     name, smi = device_phase()
     build_phase()
@@ -532,12 +864,21 @@ def main():
     drive_phase()
     reference_phase()
     cfg, params, prompts, counts = serve_phase()
-    k1_inputs, _ = split_phase(cfg, params, prompts)
+    k1_inputs, _, kcache = split_phase(cfg, params, prompts)
     k1 = k1_timing(k1_inputs, k1_err)
     k1["launches"] = counts["fused_residency_step"]
     k2["launches"] = counts["paged_gather"]
+    del params, k1_inputs            # free the serve phase before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3q, k3d = qdq_phase(gen)
+    k4c, k4d = bdi_phase(gen, kcache)
+    train_reference_phase()
+    tcfg, params, opt_state, step_fn, k3_counts = train_phase()
+    k3q["launches"], k3d["launches"] = k3_counts
+    train_split_phase(tcfg, params, opt_state, step_fn)
     print(smi)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3q, k3d, k4c, k4d]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,10 @@ layout ``repro.models.model.init_model`` produces, after
 ``jax.device_get`` — and returns the port's tree, so both packages then
 compute the same function. `state_from_numpy` / `state_to_numpy` convert
 a ``BatchedKVStoreState`` field by field (by name), which is how the
-tests hold the port's store against the reference. bfloat16 arrays
+tests hold the port's store against the reference. `opt_state_from_numpy`
+/ `opt_state_to_numpy` carry the AdamW state (``{"mu", "nu", "count"}``)
+and `batch_from_numpy` a training batch, so a reference state, batch and
+parameters give the port the same train step. bfloat16 arrays
 (``ml_dtypes``) are carried bit for bit.
 """
 from __future__ import annotations
@@ -93,3 +96,31 @@ def state_to_numpy(state: BatchedKVStoreState) -> dict:
             return {k: walk(v) for k, v in x.items()}
         raise TypeError(type(x).__name__)
     return walk(state)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors -> the same tree of numpy arrays."""
+    return tree_map(to_numpy, tree)
+
+
+def opt_state_from_numpy(state, device=None) -> dict:
+    """The reference's AdamW state {"mu", "nu", "count"} (numpy leaves)
+    -> the port's, on the card unless `device` says otherwise."""
+    device = resolve_device(device)
+    return {"mu": tree_map(lambda a: to_tensor(a, device), state["mu"]),
+            "nu": tree_map(lambda a: to_tensor(a, device), state["nu"]),
+            "count": to_tensor(np.asarray(state["count"], np.int32),
+                               device)}
+
+
+def opt_state_to_numpy(state) -> dict:
+    return {"mu": tree_to_numpy(state["mu"]),
+            "nu": tree_to_numpy(state["nu"]),
+            "count": to_numpy(state["count"])}
+
+
+def batch_from_numpy(batch, device=None) -> dict:
+    """A training batch {tokens, labels, mask, ...} of numpy arrays ->
+    tensors on the card unless `device` says otherwise."""
+    device = resolve_device(device)
+    return {k: to_tensor(v, device) for k, v in batch.items()}

@@ -25,6 +25,20 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of `tree` in `tree_map`'s visiting order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like `like` whose leaves are `leaves`, taken in
+    `tree_map`'s visiting order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def replicate(tree, num_units: int):
     """Stack a per-unit state tree C times along a new leading axis."""
     return tree_map(lambda x: torch.stack([x] * num_units), tree)

@@ -1,0 +1,69 @@
+"""Deterministic synthetic data pipeline.
+
+PyTorch counterpart of ``repro.data.pipeline``: the same Zipf unigram
+over the vocabulary, the same document structure (BOS, token 1, at a
+per-row offset every `doc_len` positions) and the same ``{tokens,
+labels, mask}`` layout (the frontend stubs' inputs wait for the
+frontend models). Each batch is drawn from a ``torch.Generator``
+seeded from ``(seed, step)``, so a batch is reproducible from its step
+alone (a resumed job re-reads the same stream) and is generated on the
+device it is used on. The numbers differ from ``jax.random``'s; tests
+that compare the two packages feed the reference's batches through
+numpy.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    doc_len: int = 512
+    zipf_alpha: float = 1.1
+
+
+def _zipf_logits(vocab: int, alpha: float, device=None):
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float32, device=device)
+    return -alpha * torch.log(ranks)
+
+
+def _generator(seed: int, step: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(
+        (int(seed) << 32) + int(step))
+
+
+def synthetic_batch(cfg: ArchConfig, shape: ShapeConfig, dcfg: DataConfig,
+                    step: int, device=None):
+    """One global batch {tokens (B,S) int32, labels, mask (B,S) f32} on
+    `device` (the card unless told otherwise)."""
+    device = resolve_device(device)
+    gen = _generator(dcfg.seed, step, device)
+    b, s = shape.global_batch, shape.seq_len
+    probs = torch.softmax(_zipf_logits(cfg.vocab_size, dcfg.zipf_alpha,
+                                       device), dim=0)
+    tokens = torch.multinomial(probs, b * s, replacement=True,
+                               generator=gen).reshape(b, s)
+    # document boundaries: BOS (token 1) at deterministic offsets
+    offs = torch.randint(0, dcfg.doc_len, (b, 1), generator=gen,
+                         device=device)
+    pos = torch.arange(s, device=device)[None, :]
+    bos = (pos + offs) % dcfg.doc_len == 0
+    tokens = torch.where(bos, 1, tokens).to(torch.int32)
+    return {"tokens": tokens, "labels": tokens,
+            "mask": torch.ones((b, s), dtype=torch.float32, device=device)}
+
+
+def synthetic_batch_iterator(cfg: ArchConfig, shape: ShapeConfig,
+                             dcfg: DataConfig, start_step: int = 0,
+                             device=None) -> Iterator[dict]:
+    step = start_step
+    while True:
+        yield synthetic_batch(cfg, shape, dcfg, step, device)
+        step += 1

@@ -83,23 +83,26 @@ def build_all(kernels) -> float:
     if not torch.cuda.is_available():
         raise RuntimeError("the repro_torch CUDA kernels need a CUDA device")
     t0 = time.perf_counter()
-    pending = []
+    pending = {}                       # one nvcc per source, not per symbol
     for k in kernels:
         path = _lib_path(k.source)
-        if path.exists():
+        if path.exists() or k.source in pending:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / k.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        pending.append((k, path, tmp, proc))
-    for k, path, tmp, proc in pending:
+        pending[k.source] = (path, tmp, proc)
+    logs = {}
+    for source, (path, tmp, proc) in pending.items():
         out, _ = proc.communicate()
-        k.build_log = out
+        logs[source] = out
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {k.source}:\n{out}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{out}")
         os.replace(tmp, path)
+    for k in kernels:
+        k.build_log = logs.get(k.source, k.build_log)
     for k in kernels:
         if k._lib is None:
             k._load(_lib_path(k.source))

@@ -1,4 +1,4 @@
-"""Device-dispatched entries for the store's kernels.
+"""Device-dispatched entries for the port's kernels.
 
 `impl="auto"` launches the CUDA kernel on a CUDA tensor and runs the
 plain PyTorch version on a CPU tensor; `"cuda"` always launches the
@@ -8,7 +8,11 @@ fallback: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import bdi as _bdi
 from repro_torch.kernels import paged_gather as _pg
+from repro_torch.kernels import qdq_int8 as _qdq
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import residency_fused as _rf
 
@@ -19,6 +23,36 @@ def _use_kernel(t, impl: str) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     return impl == "cuda" or (impl == "auto" and t.is_cuda)
+
+
+def quantize_block_int8(x2d, impl: str = "auto"):
+    """(N, B) f32 -> (q (N, B) int8, scale (N, 1) f32), per-row scale."""
+    if _use_kernel(x2d, impl):
+        return _qdq.quantize_block_int8(x2d)
+    return _ref.quantize_block_int8(x2d)
+
+
+def dequantize_block_int8(q, scale, out_dtype=torch.float32,
+                          impl: str = "auto"):
+    """q (N, B) int8 * scale (N, 1) f32 -> (N, B) `out_dtype`."""
+    if _use_kernel(q, impl):
+        return _qdq.dequantize_block_int8(q, scale, out_dtype)
+    return _ref.dequantize_block_int8(q, scale, out_dtype)
+
+
+def bdi_compress(x2d_i32, impl: str = "auto"):
+    """(N, B) int32 -> (base (N, 1) int32, deltas (N, B) int8, ok (N, 1)
+    int8)."""
+    if _use_kernel(x2d_i32, impl):
+        return _bdi.bdi_compress(x2d_i32)
+    return _ref.bdi_compress(x2d_i32)
+
+
+def bdi_decompress(base, deltas, ok, raw, impl: str = "auto"):
+    """where(ok, base + deltas, raw) (N, B) int32."""
+    if _use_kernel(raw, impl):
+        return _bdi.bdi_decompress(base, deltas, ok, raw)
+    return _ref.bdi_decompress(base, deltas, ok, raw)
 
 
 def paged_gather(pool, idx, mask=None, impl: str = "auto"):

@@ -1,15 +1,19 @@
-"""Plain PyTorch versions of the store's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the ground truth the CUDA kernels are held to (bit for bit, on
 the card) and what the wrappers in `ops` run on CPU tensors. They follow
-``repro.kernels.ref`` op for op, with two PyTorch-side conventions:
+``repro.kernels.ref`` op for op, with three PyTorch-side conventions:
 
 * gathers index as jnp does — a negative index counts from the end and
   an index past the table is clamped, as XLA's gather clamps (torch
   indexing would raise instead);
 * the pools are updated IN PLACE (`paged_scatter`,
   `fused_residency_step`), as the CUDA kernel updates them. A caller that
-  still needs the old pool passes a clone.
+  still needs the old pool passes a clone;
+* BDI's integer arithmetic wraps at 32 bits. The reference casts to
+  ``jnp.int64``, but the repository never enables jax's x64 mode, so the
+  cast yields int32 and ``x - base`` wraps; here the difference is taken
+  in int64 and wrapped explicitly (`wrap_i32`).
 """
 from __future__ import annotations
 
@@ -19,6 +23,56 @@ from repro_torch.core import residency
 
 F32 = torch.float32
 I32 = torch.int32
+
+
+def quantize_block_int8(x2d):
+    """x2d (N, B) float -> (q (N, B) int8, scale (N, 1) f32): per row,
+    scale = amax/127 (1.0 where amax is 0) and q = clip(round-half-even(
+    x/scale), -127, 127)."""
+    x = x2d.to(F32)
+    amax = x.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, ieee_div(amax, 127.0),
+                        torch.ones((), dtype=F32, device=x.device))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def ieee_div(x, c: float):
+    """x / c rounded once, on every device. PyTorch's CUDA division by a
+    Python scalar multiplies by the rounded reciprocal instead (one ulp
+    off on some inputs); a divisor tensor on x's device keeps it a true
+    division there, as it is on the CPU."""
+    return x / torch.full_like(x, c)
+
+
+def dequantize_block_int8(q, scale, dtype=F32):
+    """(q (N, B) int8, scale (N, 1) f32) -> (q * scale) as `dtype`."""
+    return (q.to(F32) * scale).to(dtype)
+
+
+def wrap_i32(x64):
+    """int64 tensor -> int32 by two's-complement wraparound."""
+    return (((x64 + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(I32)
+
+
+def bdi_compress(x2d_i32, delta_bits: int = 8):
+    """x2d (N, B) int32 -> (base (N, 1) int32, deltas (N, B) int8, ok
+    (N, 1) int8): base is each row's first word, delta = x - base
+    wrapped to int32, and a row is ok iff every delta fits `delta_bits`
+    signed bits; deltas are clipped to that range."""
+    base = x2d_i32[:, :1]
+    delta = wrap_i32(x2d_i32.long() - base.long())
+    lim = 2 ** (delta_bits - 1)
+    ok = ((delta >= -lim) & (delta < lim)).all(dim=1, keepdim=True)
+    deltas = torch.clamp(delta, -lim, lim - 1).to(torch.int8)
+    return base, deltas, ok.to(torch.int8)
+
+
+def bdi_decompress(base, deltas, ok, raw):
+    """Rows with ok != 0 from base + delta (wrapped to int32), the
+    others from `raw` (N, B) int32."""
+    rec = wrap_i32(base.long() + deltas.long())
+    return torch.where(ok.to(torch.bool), rec, raw)
 
 
 def paged_gather(pool, idx, mask=None):

@@ -1,10 +1,14 @@
-"""GQA attention, decode path (one new token against a KV cache).
+"""GQA attention: full-sequence (direct and blockwise flash-style) for
+training, and decode (one new token against a KV cache).
 
-PyTorch counterpart of the decode half of ``repro.models.attention``,
-written as the reference's math: project, RMS-normalise q and k, RoPE,
-write the cache, expand the KV heads, scaled scores in f32, mask,
-softmax, weighted sum, output projection. The KV cache keeps the
-reference's (B, T, K, H) layout and is written in place.
+PyTorch counterpart of ``repro.models.attention``, written as the
+reference's math: project, RMS-normalise q and k, RoPE, expand the KV
+heads, scaled scores in f32, mask, softmax, weighted sum, output
+projection. The blockwise path keeps the reference's running (m, l, acc)
+and its two tile orders (every KV block, or the static causal/banded
+pair list); it is plain torch on purpose, held to the reference, not
+``scaled_dot_product_attention``. The KV cache keeps the reference's
+(B, T, K, H) layout and is written in place.
 """
 from __future__ import annotations
 
@@ -52,6 +56,129 @@ def _expand_kv(t, cfg):
     if group == 1:
         return t
     return torch.repeat_interleave(t, group, dim=2)
+
+
+def _mask_bias(qpos, kpos, causal: bool, window: int):
+    """(len(qpos), len(kpos)) additive mask in f32."""
+    ok = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                    device=qpos.device)
+    if causal:
+        ok &= qpos[:, None] >= kpos[None, :]
+    if window:
+        ok &= (qpos[:, None] - kpos[None, :]) < window
+    return torch.where(ok, 0.0, NEG_INF).to(F32)
+
+
+def _direct_attention(q, k, v, qpos, kpos, causal, window):
+    """q: (B,S,N,H); k,v: (B,T,N,H) (already head-expanded)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = dot(q, k, "bsnh,btnh->bnst") * scale            # f32
+    s = s + _mask_bias(qpos, kpos, causal, window)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return dot(p, v, "bnst,btnh->bsnh").to(q.dtype)
+
+
+def _pick_block(t: int, target: int = 1024) -> int:
+    for b in range(min(target, t), 0, -1):
+        if t % b == 0:
+            return b
+    return t
+
+
+def _online_update(q, ks, vs, qp, kp, m, l, acc, causal, window, scale):
+    """One (q-block, kv-block) tile of the running softmax: returns the
+    block's new (m (B,N,s), l (B,N,s), acc (B,s,N,H) f32)."""
+    sc = dot(q, ks, "bsnh,btnh->bnst") * scale
+    sc = sc + _mask_bias(qp, kp, causal, window)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    p = torch.exp(sc - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = dot(p.to(q.dtype), vs, "bnst,btnh->bsnh")
+    acc = acc * corr.permute(0, 2, 1)[..., None] + pv
+    return m_new, l, acc
+
+
+def _flash_attention(q, k, v, qpos, kpos, causal, window,
+                     kv_block: int = 1024, triangular: bool = True):
+    """Blockwise attention with running (m, l, acc): O(S*block) memory.
+
+    triangular=True visits only the (q-block, kv-block) tiles a causal
+    (optionally banded) mask can reach, in the reference's static pair
+    order. Each q block carries its own running state (the reference
+    updates slices of one array; the values are the same), which keeps
+    the loop free of in-place writes for autograd.
+    """
+    b, s, nh, hd = q.shape
+    t = k.shape[1]
+    blk = _pick_block(t, kv_block)
+    nblk = t // blk
+    scale = 1.0 / math.sqrt(hd)
+
+    def init(rows):
+        return (torch.full((b, nh, rows), -math.inf, dtype=F32,
+                           device=q.device),
+                torch.zeros((b, nh, rows), dtype=F32, device=q.device),
+                torch.zeros((b, rows, nh, hd), dtype=F32, device=q.device))
+
+    def finish(l, acc):
+        l = torch.clamp(l, min=1e-30)
+        return (acc / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+
+    if not (triangular and causal):
+        m, l, acc = init(s)
+        for i in range(nblk):
+            sl = slice(i * blk, (i + 1) * blk)
+            m, l, acc = _online_update(q, k[:, sl], v[:, sl], qpos, kpos[sl],
+                                       m, l, acc, causal, window, scale)
+        return finish(l, acc)
+
+    # ---- triangular / banded tile enumeration (static pair list) ----
+    qblk = _pick_block(s, kv_block)
+    nq = s // qblk
+    state = [init(qblk) for _ in range(nq)]
+    for qi in range(nq):
+        for kj in range(nblk):
+            lo_q, hi_q = qi * qblk, (qi + 1) * qblk - 1
+            lo_k = kj * blk
+            if lo_k > hi_q:            # fully above the causal diagonal
+                continue
+            if window and (lo_q - (kj + 1) * blk + 1) >= window:
+                continue               # fully outside the band
+            qs = slice(qi * qblk, (qi + 1) * qblk)
+            ks = slice(kj * blk, (kj + 1) * blk)
+            state[qi] = _online_update(q[:, qs], k[:, ks], v[:, ks],
+                                       qpos[qs], kpos[ks], *state[qi], True,
+                                       window, scale)
+    return torch.cat([finish(l, acc) for _, l, acc in state], dim=1)
+
+
+def attention(params, cfg, x, *, kv_x=None, positions=None,
+              kv_positions=None, causal=True, window=0,
+              flash_threshold=2048, triangular=True):
+    """Full-sequence attention (training / prefill). x: (B,S,D).
+    The reference's `reduce_dtype` (a bf16 tensor-parallel reduce) has
+    no counterpart: the port has no tensor parallelism."""
+    b, s, _ = x.shape
+    cross = kv_x is not None
+    kv_in = kv_x if cross else x
+    t = kv_in.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    if kv_positions is None:
+        kv_positions = torch.arange(t, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, kv_in, positions, kv_positions,
+                           use_rope=not cross)
+    k = _expand_kv(k, cfg)
+    v = _expand_kv(v, cfg)
+    if max(s, t) > flash_threshold:
+        out = _flash_attention(q, k, v, positions, kv_positions,
+                               causal and not cross, window,
+                               triangular=triangular)
+    else:
+        out = _direct_attention(q, k, v, positions, kv_positions,
+                                causal and not cross, window)
+    return dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device=None):

@@ -1,4 +1,5 @@
-"""Shared layer primitives: parameter init, RMSNorm, RoPE, SwiGLU MLP.
+"""Shared layer primitives: parameter init, RMSNorm, RoPE, SwiGLU MLP,
+the softmax cross entropy.
 
 PyTorch counterpart of ``repro.models.layers``. Parameters are plain
 dicts of tensors in the reference's layout; a stacked run of layers
@@ -128,3 +129,22 @@ def mlp(params, x):
     u = dot(x, params["w_up"].to(dtype), "bsd,df->bsf")
     h = (silu(g) * u).to(dtype)
     return dot(h, params["w_down"].to(dtype), "bsf,fd->bsd").to(dtype)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+def softmax_xent(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Cross entropy with optional z-loss; logits (B,S,V) taken in f32,
+    labels (B,S) int; `mask` (B,S) weights the mean."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if mask is None:
+        return loss.mean()
+    mask = mask.to(F32)
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,30 +1,41 @@
-"""Model assembly, decode path of the ATTN family (dense GQA stacks).
+"""Model assembly of the ATTN family (dense GQA stacks): training
+forward and loss, and the decode path.
 
-PyTorch counterpart of ``repro.models.model``: `init_model`,
-`init_decode_state` and `decode_step` for configs whose every block is
-an attention block with a dense SwiGLU MLP (qwen3, yi, minitron). The
-reference's `lax.scan` over a run of stacked layers is a Python loop
-over the run's (L,) axis. MoE, the recurrent and hybrid block kinds,
-cross attention and `prefill` are not ported yet and raise.
+PyTorch counterpart of ``repro.models.model``: `init_model`, `forward`,
+`loss_fn`, `init_decode_state` and `decode_step` for configs whose every
+block is an attention block with a dense SwiGLU MLP (qwen3, yi,
+minitron). The reference's `lax.scan` over a run of stacked layers is a
+Python loop over the run's (L,) axis; `jax.checkpoint` around the scan
+body is `torch.utils.checkpoint` around each layer. MoE, the recurrent
+and hybrid block kinds, cross attention and `prefill` are not ported yet
+and raise.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ATTN, ArchConfig
-from repro_torch.models.attention import (decode_attention, init_attention,
-                                          init_kv_cache)
+from repro_torch.core.compute_plane import tree_leaves
+from repro_torch.models.attention import (attention, decode_attention,
+                                          init_attention, init_kv_cache)
 from repro_torch.models.layers import (F32, embed, init_embedding, init_mlp,
-                                       init_rms_norm, mlp, rms_norm, unembed)
+                                       init_rms_norm, mlp, rms_norm,
+                                       softmax_xent, unembed)
 
 
 @dataclass(frozen=True)
 class ModelOptions:
-    """Run-time (non-architectural) choices; of the reference's, the
-    decode path reads only the sliding-window override."""
+    """Run-time (non-architectural) choices; of the reference's, the port
+    reads the attention tiling, the rematerialisation policy and the
+    sliding-window override."""
+    triangular_flash: bool = True      # skip fully-masked causal KV blocks
+    flash_threshold: int = 2048
+    remat: str = "dots"                # "none" | "full" | "dots"
     window_override: Optional[int] = None  # force sliding window
 
 
@@ -87,6 +98,113 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         runs.append({k: v.expand((count,) + v.shape).contiguous()
                      for k, v in one.items()})
     return {"runs": tuple(runs)}
+
+
+# ==========================================================================
+# forward blocks (training)
+# ==========================================================================
+def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
+                 positions=None, collect_kv=False):
+    """Returns (x, aux, kv_or_None)."""
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    if enc is not None or collect_kv:
+        raise NotImplementedError("cross attention and prefill's KV "
+                                  "collection are not ported")
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    h = rms_norm(x, p["norm1"]["scale"])
+    x = x + attention(p["attn"], cfg, h, positions=positions, causal=causal,
+                      window=window, flash_threshold=opt.flash_threshold,
+                      triangular=opt.triangular_flash)
+    h = rms_norm(x, p["norm2"]["scale"])
+    return x + mlp(p["ffn"], h), aux, None
+
+
+_MATMULS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+            torch.ops.aten.baddbmm}
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep every matrix
+    product's output, recompute the rest (the reference keeps the dots
+    without batch dimensions; which products are kept changes memory and
+    time, never values)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op.overloadpacket in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, opt):
+    """`fn` under the rematerialisation policy: "none" keeps every
+    activation, "full" recomputes the layer in the backward pass, "dots"
+    recomputes all but the matrix products."""
+    if opt.remat == "none":
+        return fn
+    kw = {}
+    if opt.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    elif opt.remat != "full":
+        raise ValueError(f"remat must be none|full|dots, got {opt.remat!r}")
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _unstack(tree, count: int):
+    """A stacked (L, ...) tree -> L per-layer trees of views. `unbind`
+    gives the backward one stack of the L layer gradients per leaf, where
+    indexing layer by layer would add L full-size zero-padded ones."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(count)]
+    return list(torch.unbind(tree, 0))
+
+
+def _run_scan(run_params, kind, x, cfg, opt, *, causal=True, window=0,
+              enc=None, positions=None, collect_kv=False):
+    """Run a stack of identical blocks with stacked (L, ...) params.
+    Returns (x, aux, None)."""
+    count = tree_leaves(run_params)[0].shape[0]
+    aux = torch.zeros((), dtype=F32, device=x.device)
+
+    def body(xx, layer_p):
+        xx, a, _ = _apply_block(kind, layer_p, cfg, xx, opt, causal=causal,
+                                window=window, enc=enc, positions=positions,
+                                collect_kv=collect_kv)
+        return xx, a
+
+    step = _remat(body, opt)
+    for layer_p in _unstack(run_params, count):
+        x, a = step(x, layer_p)
+        aux = aux + a
+    return x, aux, None
+
+
+def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
+    """Training forward. batch: {tokens (B,S) int} -> (logits (B,S,Vp)
+    f32, aux)."""
+    _check_ported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    x = embed(params["embed"], batch["tokens"].long(), dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    window = _window(cfg, opt)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for (kind, _), run_params in zip(_plan(cfg), params["runs"]):
+        x, a, _ = _run_scan(run_params, kind, x, cfg, opt, causal=True,
+                            window=window, positions=positions)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"]["scale"])
+    return unembed(params["unembed"], x), aux
+
+
+def loss_fn(params, cfg: ArchConfig, batch, opt: ModelOptions):
+    """(loss, {"xent", "aux"}): next-token cross entropy (+ z-loss) under
+    the batch's mask, plus 0.01 * aux."""
+    logits, aux = forward(params, cfg, batch, opt)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    xent = softmax_xent(logits[:, :-1, :], labels[:, 1:],
+                        None if mask is None else mask[:, 1:])
+    loss = xent + 0.01 * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 def _layer(tree, i: int):

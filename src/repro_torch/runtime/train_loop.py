@@ -1,0 +1,198 @@
+"""Train step construction: grad accumulation, two DP-sync modes, AdamW.
+
+PyTorch counterpart of ``repro.runtime.train_loop``. DP-sync modes (the
+framework-level DaeMon experiment):
+
+* ``none`` — the whole batch's gradients, accumulated over microbatches
+  at full f32 width (the reference's bulk, page-granularity analogue).
+* ``int8`` with ``num_pods > 1`` — DaeMon link compression applied to
+  the pod link: the batch is split pod-major, each pod's gradients are
+  computed and block-int8 quantized per leaf (blocks never straddle
+  pods), exchanged as int8 plus f32 scales, then dequantized and
+  averaged over pods. On a CUDA device quantize and dequantize are the
+  hand-written kernels of ``csrc/qdq_int8.cu`` (through
+  ``core.compression`` and ``kernels.ops``).
+
+The port has no device mesh yet. Without one, the reference's
+replication constraint (its int8 all-gather over the pod axis) is the
+identity (``mesh_rules.constrain`` is a no-op), so on one card the
+exchange is the identity here too; the pods are computed one after the
+other. Two things differ from the reference for memory, not for values:
+pod p's gradients are quantized as soon as they exist, so only one
+pod's f32 gradients are alive at a time, and the optimizer updates the
+parameters and moments in place (see ``optim.adamw``).
+
+`train_step` takes an optional `on_stage(name)` callback, called after
+each stage ("forward_backward", "pod_sync", "optimizer"); a caller that
+times the stages synchronises the device there.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compression import (dequantize_block_int8,
+                                          quantize_block_int8)
+from repro_torch.core.compute_plane import (tree_leaves, tree_map,
+                                            tree_unflatten)
+from repro_torch.models.model import ModelOptions, loss_fn
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.schedule import cosine_schedule
+
+F32 = torch.float32
+DP_COMPRESS = ("none", "int8")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    adamw: AdamWConfig = AdamWConfig()
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    dp_compress: str = "none"        # "none" | "int8"
+    quant_block: int = 256
+    num_pods: int = 1                # pod-major batch splitting for "int8"
+
+
+def _reshape_micro(batch, n_micro: int):
+    def r(x):
+        b = x.shape[0]
+        return x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
+    return tree_map(r, batch)
+
+
+def split_pods(batch, num_pods: int):
+    """The global batch as `num_pods` pod-major sub-batches."""
+    def r(x):
+        return x.reshape((num_pods, x.shape[0] // num_pods)
+                         + tuple(x.shape[1:]))
+    stacked = tree_map(r, batch)
+    return [tree_map(lambda x: x[p], stacked) for p in range(num_pods)]
+
+
+def _loss_and_grad_fn(cfg: ArchConfig, opt: ModelOptions):
+    """(params, microbatch) -> ((loss, metrics), grads), grads shaped
+    like params (f32 for f32 params)."""
+    def loss_and_grad(params, mb):
+        live = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree_unflatten(params, live), cfg, mb,
+                                    opt)
+            grads = torch.autograd.grad(loss, live)
+        return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+                tree_unflatten(params, grads))
+    return loss_and_grad
+
+
+def _accum_grads(loss_and_grad, params, micro_batch, n_micro):
+    """Loop over microbatches with f32 gradient accumulation. Returns
+    (mean grads, mean loss, per-microbatch metrics stacked)."""
+    acc = None
+    loss_sum = torch.zeros((), dtype=F32)
+    metrics = []
+    for i in range(n_micro):
+        mb = tree_map(lambda x: x[i], micro_batch)
+        (loss, m), grads = loss_and_grad(params, mb)
+        g32 = [g.to(F32) for g in tree_leaves(grads)]
+        if acc is None:                # a broadcast grad cannot add_ in place
+            acc = [g if g.is_contiguous() else g.contiguous() for g in g32]
+        else:
+            for a, g in zip(acc, g32):
+                a.add_(g)
+        del grads, g32
+        loss_sum = loss_sum.to(loss.device) + loss
+        metrics.append(m)
+    grads = tree_unflatten(params, [a.div_(n_micro) for a in acc])
+    stacked = {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    return grads, loss_sum / n_micro, stacked
+
+
+def make_grads_fn(cfg: ArchConfig, opt: ModelOptions):
+    """(params, batch) -> (grads, loss): the batch's gradients averaged
+    over cfg.grad_accum_microbatches microbatches."""
+    n_micro = max(1, cfg.grad_accum_microbatches)
+    loss_and_grad = _loss_and_grad_fn(cfg, opt)
+
+    def grads_of(params, batch):
+        micro = _reshape_micro(batch, n_micro)
+        grads, loss, _ = _accum_grads(loss_and_grad, params, micro, n_micro)
+        return grads, loss
+
+    return grads_of
+
+
+def _quantize_pod(grads, block: int):
+    """One pod's gradients -> [(q, scales)] per leaf, in leaf order."""
+    return [quantize_block_int8(g, block) for g in tree_leaves(grads)]
+
+
+def _dequantize_mean(pods_q, like, block: int):
+    """Mean over pods of the dequantized per-leaf gradients, as a tree
+    shaped like `like`."""
+    out = []
+    for i, leaf in enumerate(tree_leaves(like)):
+        total = None
+        for pod in pods_q:
+            q, scale = pod[i]
+            deq = dequantize_block_int8(q, scale, tuple(leaf.shape), block)
+            total = deq if total is None else total + deq
+        out.append(total / len(pods_q))
+    return tree_unflatten(like, out)
+
+
+def _compressed_pod_sync(grads_stack, num_pods: int, block: int):
+    """grads_stack: tree with a leading (num_pods,) axis.
+
+    int8-quantize each pod's partial gradients per leaf, exchange (the
+    identity without a mesh, see the module docstring), dequantize and
+    average over pods."""
+    pods = [tree_map(lambda g: g[p], grads_stack) for p in range(num_pods)]
+    return _dequantize_mean([_quantize_pod(g, block) for g in pods],
+                            pods[0], block)
+
+
+def make_train_step(cfg: ArchConfig, opt: ModelOptions, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch, step, on_stage=None)
+    -> (params, opt_state, metrics); params and opt_state are updated in
+    place."""
+    if tcfg.dp_compress not in DP_COMPRESS:
+        raise ValueError(f"dp_compress must be one of {DP_COMPRESS}, got "
+                         f"{tcfg.dp_compress!r}")
+    grads_of = make_grads_fn(cfg, opt)
+
+    def train_step(params, opt_state, batch, step, on_stage=None):
+        mark = on_stage or (lambda stage: None)
+        lr = cosine_schedule(step, peak_lr=tcfg.adamw.lr,
+                             warmup_steps=tcfg.warmup_steps,
+                             total_steps=tcfg.total_steps)
+        if tcfg.dp_compress == "int8" and tcfg.num_pods > 1:
+            pods_q, losses = [], []
+            for pod_batch in split_pods(batch, tcfg.num_pods):
+                grads, loss = grads_of(params, pod_batch)
+                mark("forward_backward")
+                pods_q.append(_quantize_pod(grads, tcfg.quant_block))
+                del grads
+                mark("pod_sync")
+                losses.append(loss)
+            grads = _dequantize_mean(pods_q, params, tcfg.quant_block)
+            del pods_q
+            loss = torch.stack(losses).mean()
+            mark("pod_sync")
+        else:
+            grads, loss = grads_of(params, batch)
+            mark("forward_backward")
+        params, opt_state, om = adamw_update(grads, opt_state, params,
+                                             tcfg.adamw, lr=lr)
+        mark("optimizer")
+        return params, opt_state, {"loss": loss, "lr": lr, **om}
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig, opt: ModelOptions):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, metrics = loss_fn(params, cfg, batch, opt)
+        return {"loss": loss, **metrics}
+    return eval_step

@@ -10,7 +10,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_shape
+from repro_torch.data.pipeline import DataConfig, synthetic_batch
+from repro_torch.launch import train as launch_train
 from repro_torch.core import residency
 from repro_torch.core.daemon_store import KVStoreConfig, init_kv_store_batch
 from repro_torch.kernels import _build, ops
@@ -45,13 +47,18 @@ def test_import_without_jax():
         "       and (m in ('repro', 'jax') or m.startswith('repro.')\n"
         "            or m.startswith('jax.'))]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={**os.environ,
                               "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 38
+    for mod in ("optim.adamw", "optim.schedule", "data.pipeline",
+                "launch.train", "runtime.train_loop", "runtime.fault",
+                "core.compression", "kernels.qdq_int8", "kernels.bdi"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def _no_cuda():
@@ -69,6 +76,11 @@ def test_entry_points_default_to_the_card():
         serve_batch_paged({}, get_config("qwen3-1.7b").reduced(),
                           torch.zeros((1, 2), dtype=torch.int32),
                           ServeConfig(max_new_tokens=1), cfg)
+    reduced = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synthetic_batch(reduced, get_shape("smoke_train"), DataConfig(), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--reduced", "--steps", "1"])
 
 
 def test_kernel_wrappers_never_fall_back():

@@ -29,8 +29,11 @@
 //   cache.
 // Bit-exactness with the plain PyTorch version: the division is
 // __fdiv_rn (IEEE, never a reciprocal multiply), rintf rounds half to
-// even as torch.round does, the max propagates NaN as torch.amax does,
-// and the build passes -fmad=false.
+// even as torch.round does, and the build passes -fmad=false. Non-finite
+// input follows the reference: the max propagates NaN as torch.amax does
+// (so a row holding NaN gets scale 1, since amax > 0 fails), Inf / Inf
+// and NaN quotients become q = 0, as the reference's float-to-int8
+// convert makes them, and +-Inf at scale 1 clamps to +-127.
 //
 // Plain C interface, loaded with ctypes. Each launch allocates nothing,
 // runs on the caller's stream and returns cudaGetLastError(), or
@@ -52,7 +55,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
     float t = rintf(__fdiv_rn(v, s));
-    t = fminf(fmaxf(t, -127.f), 127.f);
+    t = t != t ? 0.f : fminf(fmaxf(t, -127.f), 127.f);   // NaN -> 0
     return static_cast<uint32_t>(static_cast<uint8_t>(
         static_cast<int8_t>(static_cast<int>(t))));
 }

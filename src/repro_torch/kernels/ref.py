@@ -28,12 +28,15 @@ I32 = torch.int32
 def quantize_block_int8(x2d):
     """x2d (N, B) float -> (q (N, B) int8, scale (N, 1) f32): per row,
     scale = amax/127 (1.0 where amax is 0) and q = clip(round-half-even(
-    x/scale), -127, 127)."""
+    x/scale), -127, 127). A NaN quotient gives q = 0, as the reference's
+    float-to-int8 convert does (a float NaN cast to int8 is undefined in
+    torch)."""
     x = x2d.to(F32)
     amax = x.abs().amax(dim=1, keepdim=True)
     scale = torch.where(amax > 0, ieee_div(amax, 127.0),
                         torch.ones((), dtype=F32, device=x.device))
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    t = torch.clamp(torch.round(x / scale), -127, 127)
+    q = torch.nan_to_num(t, nan=0.0).to(torch.int8)
     return q, scale
 
 

@@ -3,14 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-      --batch 4 --seq 1024 --dp-compress int8 --num-pods 2
+      --batch 4 --seq 1024
 
 Mirrors ``repro.launch.train``: random f32 parameters from a seed,
 synthetic batches, the train step with the step watchdog and straggler
-detector around it. It runs on the card unless given ``--device cpu``;
-with ``--dp-compress int8 --num-pods N`` the pod-gradient sync goes
-through the block-int8 kernels. Remat is "full", or "none" with
-``--reduced``, as the reference's launcher sets it. Checkpointing
+detector around it. It runs on the card unless given ``--device cpu``.
+Remat is "full", or "none" with ``--reduced``, as the reference's
+launcher sets it; the train step is the reference's default (no pod
+split), and the int8 pod-gradient sync is driven through ``TrainConfig``
+(``dp_compress="int8"``, ``num_pods``). Checkpointing
 (``--ckpt-dir``) waits for the port of ``checkpoint/manager.py``.
 """
 from __future__ import annotations
@@ -44,8 +45,6 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="override global batch")
     ap.add_argument("--seq", type=int, default=0, help="override seq len")
-    ap.add_argument("--dp-compress", default="none", choices=("none", "int8"))
-    ap.add_argument("--num-pods", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="cpu or cuda (default: the card)")
     args = ap.parse_args(argv)
@@ -65,8 +64,7 @@ def main(argv=None):
                        remat="none" if args.reduced else "full")
     tcfg = TrainConfig(adamw=AdamWConfig(lr=args.lr),
                        warmup_steps=max(1, args.steps // 20),
-                       total_steps=args.steps, dp_compress=args.dp_compress,
-                       num_pods=args.num_pods)
+                       total_steps=args.steps)
     dcfg = DataConfig(seed=args.seed)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)

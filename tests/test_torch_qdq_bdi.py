@@ -76,6 +76,36 @@ def test_quantize_plain_matches_pallas_and_oracle(shape):
     np.testing.assert_array_equal(q[1, 1:4].numpy(), [-126, -124, -124])
 
 
+def _non_finite_rows(n, b, seed):
+    """Finite rows, then a row holding a NaN (scale 1), one holding +Inf
+    (scale Inf, its Inf / Inf quotient NaN) and one holding NaN and -Inf
+    (scale 1, -Inf clamps to -127)."""
+    x = _float_rows(n, b, seed)
+    x[4, 5] = np.nan
+    x[5, 7] = np.inf
+    x[6, 1], x[6, 2] = np.nan, -np.inf
+    return x
+
+
+def test_quantize_non_finite_rows_match_pallas_and_oracle():
+    """NaN quotients give q = 0, as the reference's float-to-int8 convert
+    does; scales 1 or Inf are exact, so interpret mode agrees too."""
+    x = _non_finite_rows(8, 256, seed=11)
+    q, s = ref.quantize_block_int8(torch.from_numpy(x))
+    for qj, sj in (R.quantize_block_int8(jnp.asarray(x)),
+                   KQ.quantize_block_int8(jnp.asarray(x), interpret=True)):
+        np.testing.assert_array_equal(q.numpy()[4:7], np.asarray(qj)[4:7])
+        np.testing.assert_array_equal(s.numpy()[4:7], np.asarray(sj)[4:7])
+    np.testing.assert_array_equal(s.numpy()[4:7, 0], [1.0, np.inf, 1.0])
+    np.testing.assert_array_equal(q.numpy()[[4, 5, 6, 6], [5, 7, 1, 2]],
+                                  [0, 0, 0, -127])
+    qj, sj = R.quantize_block_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(qj))
+    # dequantize: 0 x Inf is NaN on both sides
+    np.testing.assert_array_equal(ref.dequantize_block_int8(q, s).numpy(),
+                                  np.asarray(R.dequantize_block_int8(qj, sj)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dequantize_plain_matches_pallas_and_oracle(dtype):
     x = _float_rows(16, 256, seed=3)
@@ -157,13 +187,14 @@ def test_kernels_match_plain_on_the_card():
     train path's shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    x = torch.from_numpy(_float_rows(13, 256, seed=7)).cuda()
+    x = torch.from_numpy(_non_finite_rows(13, 256, seed=7)).cuda()
     q, s = ops.quantize_block_int8(x)
     rq, rs = ref.quantize_block_int8(x)
     assert torch.equal(q, rq) and torch.equal(s, rs)
     for dt in (torch.float32, torch.bfloat16):
-        assert torch.equal(ops.dequantize_block_int8(q, s, dt),
-                           ref.dequantize_block_int8(q, s, dt))
+        torch.testing.assert_close(ops.dequantize_block_int8(q, s, dt),
+                                   ref.dequantize_block_int8(q, s, dt),
+                                   rtol=0, atol=0, equal_nan=True)
     xi = torch.from_numpy(_int_rows(24, 256, seed=8)).cuda()
     got = ops.bdi_compress(xi)
     for a, b in zip(got, ref.bdi_compress(xi)):

@@ -11,6 +11,10 @@ qwen3-1.7b, and four steps at full width with the int8-compressed
 pod-gradient sync on the block-int8 kernels. It checks every result and
 imports nothing of JAX or of the reference package.
 
+The store's kernels are also timed at the store benchmark's shapes:
+the paged gather at L = 256 rows (with L2 warm and cold) and the
+residency transaction at B = 64, 256 x 16 slots, 16 in-flight lanes.
+
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches on
 its path (serving for the store's kernels, training for the quantizer,
@@ -22,6 +26,7 @@ around it, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -163,42 +168,108 @@ def build_phase():
 
 
 # ---------------------------------------------------------------- phase 3
-def gather_phase(gen):
-    """K2 at the serving shape: remote pool (8*64, 16, 8, 128) bf16,
-    L = 32 rows, masked and unmasked."""
-    pool = torch.randn((8 * 64, 16, 8, 128), generator=gen, device=DEV
+def gather_case(gen, pool_rows, rows):
+    """A bf16 remote pool of `pool_rows` (16, 8, 128) rows (32 KB each),
+    `rows` random indices and a random half mask."""
+    pool = torch.randn((pool_rows, 16, 8, 128), generator=gen, device=DEV
                        ).to(torch.bfloat16)
-    idx = torch.randint(0, pool.shape[0], (32,), generator=gen, device=DEV,
+    idx = torch.randint(0, pool_rows, (rows,), generator=gen, device=DEV,
                         dtype=torch.int32)
-    mask = torch.rand((32,), generator=gen, device=DEV) < 0.5
-    errs = []
-    for m in (None, mask):
-        got = PG.paged_gather(pool, idx, m)
-        want = REF.paged_gather(pool, idx, m)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"paged_gather != plain (mask={m is not None})")
-        errs.append(max_abs_err([got], [want]))
+    mask = torch.rand((rows,), generator=gen, device=DEV) < 0.5
+    return pool, idx, mask
+
+
+def gather_cold(gen, pool, rows, n=20):
+    """Device ms of K2 and of index_select with L2 cold: each of the
+    `n` back-to-back calls in the timed graph gathers another `rows`
+    random rows, so the rows read add up to more than the 50 MB L2."""
+    idxs = [torch.randint(0, pool.shape[0], (rows,), generator=gen,
+                          device=DEV, dtype=torch.int32) for _ in range(n)]
+    idx64 = [i.long() for i in idxs]
+    k = iter(range(10 ** 9))
+    return {
+        "cold_ms": device_ms(lambda: PG.paged_gather(pool, idxs[next(k) % n]),
+                             iters=n),
+        "library_cold_ms": device_ms(
+            lambda: torch.index_select(pool, 0, idx64[next(k) % n]),
+            iters=n),
+    }
+
+
+def gather_timing(pool, idx):
+    """K2 on one pool and on the K/V pair (one launch; the main path's
+    form): device ms of the kernel, the plain version and index_select
+    (two calls for the pair), the byte bound, and the eager call's ms.
+    Rows repeat from call to call, so they are read from L2."""
     row = pool[0].numel() * pool.element_size()
-    nbytes = 2 * idx.shape[0] * row + idx.numel() * 4
     idx64 = idx.long()
-    rec = {
-        "name": "paged_gather", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_gather.cu",
-        "replaces": "src/repro/kernels/paged_gather.py:30",
-        "max_abs_err": max(errs),
+    pool_v = torch.flip(pool, (0,))
+    one = 2 * idx.shape[0] * row + idx.numel() * 4
+    return {
         "ms": device_ms(lambda: PG.paged_gather(pool, idx)),
         "plain_ms": device_ms(lambda: REF.paged_gather(pool, idx)),
         "library_ms": device_ms(lambda: torch.index_select(pool, 0, idx64)),
-        "bound_ms": nbytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
+        "bound_ms": one / HBM_BYTES_PER_MS,
+        "call_ms": call_ms(lambda: PG.paged_gather(pool, idx)),
+        "library_call_ms": call_ms(lambda: torch.index_select(pool, 0,
+                                                              idx64)),
+        "pair_ms": device_ms(lambda: PG.paged_gather_pair(pool, pool_v,
+                                                          idx)),
+        "pair_plain_ms": device_ms(lambda: (REF.paged_gather(pool, idx),
+                                            REF.paged_gather(pool_v, idx))),
+        "pair_library_ms": device_ms(lambda: (
+            torch.index_select(pool, 0, idx64),
+            torch.index_select(pool_v, 0, idx64))),
+        "pair_bound_ms": (2 * one - idx.numel() * 4) / HBM_BYTES_PER_MS,
+        "pair_call_ms": call_ms(lambda: PG.paged_gather_pair(pool, pool_v,
+                                                             idx)),
     }
-    phase("paged_gather", exact=True, rows=32, row_bytes=row,
-          ms=rec["ms"], plain_ms=rec["plain_ms"],
-          library_ms=rec["library_ms"], bound_ms=rec["bound_ms"],
-          call_ms=call_ms(lambda: PG.paged_gather(pool, idx)),
-          library_call_ms=call_ms(lambda: torch.index_select(pool, 0,
-                                                             idx64)))
-    return rec
+
+
+def gather_phase(gen):
+    """K2 bit for bit, one pool and the K/V pair, masked and unmasked, at
+    the serving shape (remote pool 8*64 rows of (16, 8, 128) bf16, L = 32
+    = B*R) and at the store benchmark's batch (pool 64*64 rows, L = 256 =
+    64*4), with indices past both ends; timed at both. Its record in the
+    kernel line is the pair at the serving shape, as `_remote_fetch`
+    launches it."""
+    errs, times = [], {}
+    for pool_rows, rows in ((8 * 64, 32), (64 * 64, 256)):
+        pool, idx, mask = gather_case(gen, pool_rows, rows)
+        pool_v = torch.flip(pool, (0,))
+        edge = idx.clone()
+        edge[:3] = torch.tensor([-1, -pool_rows - 5, pool_rows + 7])
+        for ix in (idx, edge):
+            for m in (None, mask):
+                got = PG.paged_gather(pool, ix, m)
+                got_k, got_v = PG.paged_gather_pair(pool, pool_v, ix, m)
+                want = REF.paged_gather(pool, ix, m)
+                want_v = REF.paged_gather(pool_v, ix, m)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got_k, want)
+                        and torch.equal(got_v, want_v)):
+                    raise AssertionError(f"paged_gather != plain at L={rows} "
+                                         f"(mask={m is not None})")
+                errs.append(max_abs_err([got, got_k, got_v],
+                                        [want, want, want_v]))
+        t = gather_timing(pool, idx)
+        if rows == 256:
+            t.update(gather_cold(gen, pool, rows))
+        phase("paged_gather", exact=True, rows=rows, pool_rows=pool_rows,
+              row_bytes=pool[0].numel() * pool.element_size(), **t)
+        times[rows] = t
+        del pool, pool_v
+    t = times[32]
+    return {
+        "name": "paged_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_gather.cu",
+        "replaces": "src/repro/kernels/paged_gather.py:30",
+        "max_abs_err": max(errs), "ms": t["pair_ms"],
+        "plain_ms": t["pair_plain_ms"], "library_ms": t["pair_library_ms"],
+        "bound_ms": t["pair_bound_ms"], "bound_by": "bytes",
+        "form": "K and V pools in one launch, L = 32 rows each; "
+                "library_ms is two index_select calls",
+    }
 
 
 # ---------------------------------------------------------------- phase 4
@@ -251,7 +322,24 @@ def check_k1(args, pol):
     return max_abs_err(flat_out(ref), flat_out(got))
 
 
+def smem_check():
+    """The wrapper's shared-memory formula equals the kernel's layout at
+    the shapes chip_smoke launches."""
+    fn = RF.KERNEL.lib().residency_fused_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    for b, s, w, p, r in ((64, 1, 4096, 16, 4), (64, 256, 16, 16, 4),
+                          (8, 1, 4096, 256, 4), (8, 256, 16, 256, 4),
+                          (8, 4, 4, 256, 4), (2, 1, 4, 256, 2)):
+        geo = RF.launch_geometry(b, s, w, p, r, 32768)
+        got = fn(s, w, p, geo.lanes, r, geo.touched)
+        if got != geo.smem:
+            raise AssertionError(f"smem {s}x{w}: kernel {got}, wrapper "
+                                 f"{geo.smem}")
+
+
 def residency_phase(gen):
+    smem_check()
     err = 0.0
     for (s, w) in ((1, 4096), (256, 16)):
         for pol_name in POLICIES:
@@ -497,22 +585,17 @@ def split_phase(cfg, params, prompts):
     return k1_inputs, ms, state["runs"][0]["k"]
 
 
-def k1_timing(k1_inputs, err):
-    """The residency kernel timed on the serving run's own last-step
-    inputs; bound = bytes it must move for this data."""
+def k1_bound_bytes(k1_inputs):
+    """Bytes K1 must move on these inputs: the metadata read and written
+    once, the small per-lane and per-request arrays, and the rows of the
+    landings this data needs (compacted landed lanes that get a slot)
+    and of every request, K and V, each read once and written once."""
     res, kpool, vpool, rk, rv, landed, lpages, need, writes, clock, pol = \
         k1_inputs
     b, s, w = res.page.shape
     n = s * w
     k_lanes = min(landed.shape[1], n)
-    got = RF.fused_residency_step(*k1_inputs)
-    ref = REF.fused_residency_step(res, kpool.clone(), vpool.clone(), rk, rv,
-                                   landed, lpages, need, writes, clock, pol)
-    for name, a, c in zip(OUT_NAMES, flat_out(ref), flat_out(got)):
-        if not torch.equal(a, c):
-            raise AssertionError(f"serve-state K1 differs on {name}")
     row = kpool[0, 0].numel() * kpool.element_size()
-    # landings this data needs: compacted landed lanes that get a slot
     order = torch.sort((~landed).int(), dim=1, stable=True).indices
     pick = order[:, :k_lanes]
     do = landed.gather(1, pick)
@@ -520,30 +603,68 @@ def k1_timing(k1_inputs, err):
     _, _, ok = residency.landing_victims(res, pids, pol)
     n_land = int((do & ok).sum())
     r = need.shape[1]
-    meta = b * n * 17 * 2                       # staged in, written back
+    meta = b * n * 17 * 2                       # read, written back
     small = b * landed.shape[1] * 5 + b * r * 5 + b * k_lanes * 4 + b * 4 \
         + b * r + 16
     rows = 2 * (2 * n_land * row) + 2 * (2 * b * r * row)  # k and v
-    nbytes = meta + small + rows
-    rec = {
-        "name": "fused_residency_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/residency_fused.cu",
-        "replaces": "src/repro/kernels/residency_fused.py:217",
-        "max_abs_err": max(err, max_abs_err(flat_out(ref), flat_out(got))),
+    return meta + small + rows, n_land
+
+
+def k1_check(k1_inputs, what):
+    """K1 on a copy of the inputs against the plain version on another:
+    every output equal. Returns max |err|."""
+    res, kpool, vpool, *rest = k1_inputs
+    ref = REF.fused_residency_step(res, kpool.clone(), vpool.clone(), *rest)
+    got = RF.fused_residency_step(res, kpool.clone(), vpool.clone(), *rest)
+    for name, a, c in zip(OUT_NAMES, flat_out(ref), flat_out(got)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{what} K1 differs on {name}")
+    return max_abs_err(flat_out(ref), flat_out(got))
+
+
+def k1_timing(k1_inputs, title):
+    """K1 timed on `k1_inputs` against its bound and its plain version;
+    prints one phase line and returns its numbers."""
+    res, kpool, _, _, _, landed, _, need, _, _, _ = k1_inputs
+    b, s, w = res.page.shape
+    err = k1_check(k1_inputs, title)
+    nbytes, n_land = k1_bound_bytes(k1_inputs)
+    t = {
+        "max_abs_err": err,
         "ms": device_ms(lambda: RF.fused_residency_step(*k1_inputs)),
         "plain_ms": device_ms(lambda: REF.fused_residency_step(*k1_inputs),
                               iters=5),
-        "library_ms": None,
-        "bound_ms": nbytes / HBM_BYTES_PER_MS, "bound_by": "bytes",
+        "bound_ms": nbytes / HBM_BYTES_PER_MS,
+        "call_ms": call_ms(lambda: RF.fused_residency_step(*k1_inputs)),
+        "plain_call_ms": call_ms(
+            lambda: REF.fused_residency_step(*k1_inputs), iters=20),
     }
-    phase("fused_residency_step_serve_shape", batch=b, geometry=f"{s}x{w}",
-          inflight=landed.shape[1], requests=r, landings=n_land,
-          row_bytes=row, ms=rec["ms"], plain_ms=rec["plain_ms"],
-          bound_ms=rec["bound_ms"],
-          call_ms=call_ms(lambda: RF.fused_residency_step(*k1_inputs)),
-          plain_call_ms=call_ms(
-              lambda: REF.fused_residency_step(*k1_inputs), iters=20))
-    return rec
+    geo = RF.launch_geometry(b, s, w, landed.shape[1], need.shape[1],
+                             kpool[0, 0].numel() * kpool.element_size())
+    phase(title, batch=b, geometry=f"{s}x{w}", inflight=landed.shape[1],
+          requests=need.shape[1], landings=n_land,
+          blocks_per_seq=geo.blocks, smem=geo.smem,
+          row_bytes=kpool[0, 0].numel() * kpool.element_size(),
+          **{k: v for k, v in t.items() if k != "max_abs_err"})
+    return t
+
+
+def k1_phase(k1_inputs, gen, err):
+    """K1 timed on the serving run's own last-step inputs (its record
+    in the kernel line) and on the store benchmark's hot-path shape
+    (B = 64, 256 x 16, 16 in-flight lanes, R = 4, (4, 1, 8) rows)."""
+    t = k1_timing(k1_inputs, "fused_residency_step_serve_shape")
+    pol = residency.as_policy("lru", device=DEV)
+    hot = k1_case(gen, 64, 256, 16, 16, 4, (4, 1, 8)) + (pol,)
+    k1_timing(hot, "fused_residency_step_hot_path")
+    return {
+        "name": "fused_residency_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/residency_fused.cu",
+        "replaces": "src/repro/kernels/residency_fused.py:217",
+        "max_abs_err": max(err, t["max_abs_err"]), "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "library_ms": None,
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+    }
 
 
 # ------------------------------------------------------------ phase 6: K3
@@ -892,7 +1013,7 @@ def main():
     reference_phase()
     cfg, params, prompts, counts = serve_phase()
     k1_inputs, _, kcache = split_phase(cfg, params, prompts)
-    k1 = k1_timing(k1_inputs, k1_err)
+    k1 = k1_phase(k1_inputs, gen, k1_err)
     k1["launches"] = counts["fused_residency_step"]
     k2["launches"] = counts["paged_gather"]
     del params, k1_inputs            # free the serve phase before training

@@ -10,7 +10,7 @@ movement fabric (``fabric``). Per decode step, `step_fetch_batch`:
      dirty-eviction list, pool scatter, CAM probe, hit gather, touch) —
      one CUDA kernel launch on the card;
   2. serves misses through the sub-block plane from the remote tier
-     (`_remote_fetch` -> ``ops.paged_gather``, hit rows masked off);
+     (`_remote_fetch` -> ``ops.paged_gather_pair``, hit rows masked off);
   3. schedules the misses' transfers on the shared fabric (`_schedule`):
      §4.2 granularity selection, §4.1 partitioned channels, and the §4.3
      writeback path for dirty evictions.
@@ -220,9 +220,10 @@ def _transact(seqs: SeqState, cfg: KVStoreConfig, remote_k, remote_v,
 def _remote_fetch(remote_k, remote_v, pages_flat, miss, impl: str):
     """Sub-block critical fetch from the remote tier. Rows that hit
     locally are masked: they skip their read and come back as zeros,
-    where the reference skips the whole gather on all-hit steps."""
-    return (ops.paged_gather(remote_k, pages_flat, miss, impl=impl),
-            ops.paged_gather(remote_v, pages_flat, miss, impl=impl))
+    where the reference skips the whole gather on all-hit steps. K and V
+    share the index list and the mask: one launch on the card."""
+    return ops.paged_gather_pair(remote_k, remote_v, pages_flat, miss,
+                                 impl=impl)
 
 
 # ---------------------------------------------------------- scheduling

@@ -62,6 +62,15 @@ def paged_gather(pool, idx, mask=None, impl: str = "auto"):
     return _ref.paged_gather(pool, idx, mask)
 
 
+def paged_gather_pair(pool_k, pool_v, idx, mask=None, impl: str = "auto"):
+    """(pool_k[clamp(idx)], pool_v[clamp(idx)]), masked as paged_gather;
+    one kernel launch for both pools on the card."""
+    if _use_kernel(pool_k, impl):
+        return _pg.paged_gather_pair(pool_k, pool_v, idx, mask)
+    return (_ref.paged_gather(pool_k, idx, mask),
+            _ref.paged_gather(pool_v, idx, mask))
+
+
 def paged_scatter(pool, idx, pages, *, mode=None):
     """Page-plane pool write, in place — masked torch indexing on every
     device (the bulk page plane has no kernel; see paged_gather.py)."""

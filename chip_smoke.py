@@ -4,25 +4,32 @@
 
 Builds the port's CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a,
 into build/repro_torch/), holds each kernel bit for bit against its plain
-PyTorch version, drives a 48-step store run through both, serves
-full-width qwen3-1.7b through `serve_batch_paged` with the DaeMon KV
-store in the loop, then trains it: the card against the CPU on reduced
-qwen3-1.7b, and four steps at full width with the int8-compressed
-pod-gradient sync on the block-int8 kernels. It checks every result and
-imports nothing of JAX or of the reference package.
+PyTorch version, drives the store through every stepper (batched,
+replicated at C = 1, 2, 3, single-sequence, and the chain comparator), the
+card against the CPU or the fused path, then serves: reduced qwen3-1.7b
+card against CPU (paged, replicated, and at telemetry level "trace" with a
+link-health monitor), full-width qwen3-1.7b through `serve_batch_paged`
+and through `serve_replicated` (2 replicas x 8 tenants) with the DaeMon
+KV store in the loop, and one-pass `prefill` against the token-by-token
+decode. Then it trains: the card against the CPU on reduced qwen3-1.7b,
+and four steps at full width with the int8-compressed pod-gradient sync
+on the block-int8 kernels. It checks every result and imports nothing of
+JAX or of the reference package.
 
-The store's kernels are also timed at the store benchmark's shapes:
-the paged gather at L = 256 rows (with L2 warm and cold) and the
-residency transaction at B = 64, 256 x 16 slots, 16 in-flight lanes.
+The store's kernels are also timed at the store benchmark's shapes
+(the paged gather at L = 256 rows, with L2 warm and cold; the residency
+transaction at B = 64, 256 x 16 slots, 16 in-flight lanes) and the
+residency transaction at the replicated serve's last step (16
+sequences).
 
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches on
-its path (serving for the store's kernels, training for the quantizer,
-its own phase for BDI, which no path reaches), its time against its
-bound, the plain version's time and the library call's; and last
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
-before those lines. Without a CUDA device, or without the repository
-around it, it exits non-zero at once.
+its path (serving for the store's kernels, per path in
+`launches_by_path`; training for the quantizer; its own phase for BDI,
+which no path reaches), its time against its bound, the plain version's
+time and the library call's; and last `{"ok": true, "device": {...}}`.
+Any failure raises and exits non-zero before those lines. Without a CUDA
+device, or without the repository around it, it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,7 +61,9 @@ from repro_torch.core import daemon_store as DS  # noqa: E402
 from repro_torch.core import residency  # noqa: E402
 from repro_torch.core.engine import poll_arrivals  # noqa: E402
 from repro_torch.core.compute_plane import tree_leaves  # noqa: E402
-from repro_torch.core.fabric import FabricConfig  # noqa: E402
+from repro_torch.core.fabric import FabricConfig, scheduled_link  # noqa
+from repro_torch.core.telemetry import (TelemetryConfig,  # noqa: E402
+                                        TelemetryState, series_rows)
 from repro_torch.data.pipeline import DataConfig, synthetic_batch  # noqa
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bdi as BDI  # noqa: E402
@@ -62,11 +72,13 @@ from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
 from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
-                                      init_decode_state, init_model)
+                                      init_decode_state, init_model, prefill)
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.runtime.fault import LinkHealthMonitor  # noqa: E402
+from repro_torch.runtime.obs import counter_events, trace_export  # noqa
 from repro_torch.runtime.serve_loop import (  # noqa: E402
     PagedServeConfig, ServeConfig, make_decode_fn, paged_request_window,
-    serve_batch_paged)
+    serve_batch_paged, serve_replicated)
 from repro_torch.runtime.train_loop import (  # noqa: E402
     TrainConfig, make_grads_fn, make_train_step, split_pods)
 
@@ -566,8 +578,8 @@ def split_phase(cfg, params, prompts):
                                    store.compress_pages)
         eng, fab, n_wb = DS._writebacks(seqs.eng, kv.fab, store, evicted,
                                         clock, page_wire)
-        eng, fab, ls, ps, stalls = DS._schedule(eng, fab, store, need, offs,
-                                                hit, clock)
+        eng, fab, _, ls, ps, stalls, _ = DS._schedule(eng, fab, store, need,
+                                                      offs, hit, clock)
         stats = DS._stats_fold(seqs.stats, store, ls, ps, stalls, hit, n_wb)
         kv = DS.BatchedKVStoreState(seqs._replace(eng=eng, stats=stats),
                                     fab, clock)
@@ -665,6 +677,510 @@ def k1_phase(k1_inputs, gen, err):
         "plain_ms": t["plain_ms"], "library_ms": None,
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
     }
+
+
+# ---------------------- store drives: replicated, single-sequence, chain
+DRIVE_STORE = dict(num_local_pages=16, pool_ways=4, page_tokens=4,
+                   kv_heads=2, head_dim=16, page_budget_per_step=32,
+                   fabric=FabricConfig(num_modules=4))
+DRIVE_PAGES, DRIVE_R, DRIVE_STEPS = 256, 4, 48
+FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_movement_plane.py:63
+
+
+def drive_requests(rng, shape):
+    """One step's zipf page ids, token offsets and write flags."""
+    need = ((rng.zipf(1.3, shape) - 1) % DRIVE_PAGES).astype(np.int32)
+    return (need, rng.integers(0, 4, shape).astype(np.int32),
+            rng.random(shape) < 0.4)
+
+
+def drive_remote(rng):
+    return torch.from_numpy(rng.standard_normal(
+        (DRIVE_PAGES, 4, 2, 16)).astype(np.float32)).to(torch.bfloat16)
+
+
+def compare_states(a, b, where, exact=False):
+    """Every leaf of two store states (or outputs) equal: integer, bool
+    and bf16 leaves exactly; f32 leaves exactly when `exact`, else within
+    FLOAT_TOL. Returns (identical, largest f32 difference)."""
+    la, lb = leaves(a), leaves(b)
+    if set(la) != set(lb):
+        raise AssertionError(f"{where}: leaves differ {set(la) ^ set(lb)}")
+    identical, worst = True, 0.0
+    for key, x in la.items():
+        x, y = x.cpu(), lb[key].cpu()
+        if torch.equal(x, y):
+            continue
+        identical = False
+        if exact or x.dtype != torch.float32:
+            raise AssertionError(f"{where}: {key} differs")
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **FLOAT_TOL,
+                                   err_msg=f"{where}: {key}")
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return identical, worst
+
+
+def drive_replicated_phase():
+    """48 steps of step_fetch_replicated at C = 2 and 3 (B = 4), the card
+    against the CPU on every state leaf (NIC bank included) and output
+    every step, with two-endpoint byte conservation; and C = 1 on the
+    card against step_fetch_batch, bit for bit, its NIC bank all zeros."""
+    cfg = DS.KVStoreConfig(**DRIVE_STORE)
+    b = 4
+    for c in (2, 3):
+        rng = np.random.default_rng(c)
+        remote_c = drive_remote(rng)
+        remote_g = remote_c.to(DEV)
+        st_g = DS.init_kv_store_replicated(cfg, c, b, device=DEV)
+        st_c = DS.init_kv_store_replicated(cfg, c, b, device="cpu")
+        same, worst = True, 0.0
+        for step in range(DRIVE_STEPS):
+            need, offs, wr = (torch.from_numpy(x) for x in
+                              drive_requests(rng, (c, b, DRIVE_R)))
+            st_g, *out_g = DS.step_fetch_replicated(
+                st_g, cfg, remote_g, remote_g, need.to(DEV), offs.to(DEV),
+                wr.to(DEV))
+            st_c, *out_c = DS.step_fetch_replicated(
+                st_c, cfg, remote_c, remote_c, need, offs, wr)
+            i1, w1 = compare_states(st_g, st_c, f"C={c} step {step}")
+            i2, w2 = compare_states(out_g, out_c, f"C={c} step {step} out")
+            same, worst = same and i1 and i2, max(worst, w1, w2)
+        led = DS.ledger(st_g)
+        units, mods = sum(led["unit_bytes"]), sum(led["module_bytes"])
+        if not (led["dirty_evicts"] > 0 and led["evictions"] > 0):
+            raise AssertionError(f"C={c}: no dirty writebacks: {led}")
+        for got in (units, mods):
+            if abs(got - led["wire_bytes"]) > 1e-6 * led["wire_bytes"]:
+                raise AssertionError(f"C={c}: bytes not conserved "
+                                     f"{units} {mods} {led['wire_bytes']}")
+        wb_units = int((st_g.nic.wb_bytes > 0).sum())
+        phase("store_drive_replicated", steps=DRIVE_STEPS, replicas=c,
+              batch=b, card_equals_cpu=True, identical=same,
+              max_f32_diff=worst, unit_bytes=led["unit_bytes"],
+              module_bytes_sum=mods, wire_bytes=led["wire_bytes"],
+              units_writing_back=wb_units,
+              dirty_evicts=led["dirty_evicts"],
+              hit_rate=f"{led['local_hits'] / led['requests']:.3f}")
+    rng = np.random.default_rng(1)
+    remote = drive_remote(rng).to(DEV)
+    rep = DS.init_kv_store_replicated(cfg, 1, b, device=DEV)
+    bat = DS.init_kv_store_batch(cfg, b, device=DEV)
+    for step in range(DRIVE_STEPS):
+        need, offs, wr = (torch.from_numpy(x).to(DEV) for x in
+                          drive_requests(rng, (b, DRIVE_R)))
+        rep, *out_r = DS.step_fetch_replicated(rep, cfg, remote, remote,
+                                               need[None], offs[None],
+                                               wr[None])
+        bat, *out_b = DS.step_fetch_batch(bat, cfg, remote, remote, need,
+                                          offs, wr)
+        compare_states((rep.seqs, rep.fab, rep.clock),
+                       (bat.seqs, bat.fab, bat.clock), f"C=1 step {step}",
+                       exact=True)
+        compare_states([o[0] for o in out_r], out_b, f"C=1 step {step} out",
+                       exact=True)
+    nic = leaves(rep.nic)
+    if any(bool(v.any()) for k, v in nic.items()
+           if k.split(".")[1] in ("line_busy", "page_busy", "wb_busy",
+                                  "line_bytes", "page_bytes", "wb_bytes")):
+        raise AssertionError("C=1 touched its NIC bank")
+    phase("store_drive_replicated", steps=DRIVE_STEPS, replicas=1, batch=b,
+          equals_step_fetch_batch=True, nic_untouched=True)
+
+
+def drive_single_phase():
+    """48 steps of step_fetch (one sequence), card against CPU."""
+    cfg = DS.KVStoreConfig(**DRIVE_STORE)
+    rng = np.random.default_rng(4)
+    remote_c = drive_remote(rng)
+    remote_g = remote_c.to(DEV)
+    st_g = DS.init_kv_store(cfg, device=DEV)
+    st_c = DS.init_kv_store(cfg, device="cpu")
+    same, worst = True, 0.0
+    for step in range(DRIVE_STEPS):
+        need, offs, wr = (torch.from_numpy(x) for x in
+                          drive_requests(rng, (DRIVE_R,)))
+        st_g, *out_g = DS.step_fetch(st_g, cfg, remote_g, remote_g,
+                                     need.to(DEV), offs.to(DEV), wr.to(DEV))
+        st_c, *out_c = DS.step_fetch(st_c, cfg, remote_c, remote_c, need,
+                                     offs, wr)
+        i1, w1 = compare_states(st_g, st_c, f"single step {step}")
+        i2, w2 = compare_states(out_g, out_c, f"single step {step} out")
+        same, worst = same and i1 and i2, max(worst, w1, w2)
+    led = DS.ledger(st_g)
+    phase("store_drive_single", steps=DRIVE_STEPS, card_equals_cpu=True,
+          identical=same, max_f32_diff=worst,
+          page_moves=led["page_moves"], evictions=led["evictions"],
+          hit_rate=f"{led['local_hits'] / led['requests']:.3f}")
+
+
+def chain_phase():
+    """The 48-step batched drive (B = 8) with kernel_impl="chain" against
+    "auto" on the card: every state leaf and output equal bit for bit.
+    Returns K2's launches from the chain's run (its landing and lookup
+    gathers, one pool each, plus the remote fetch pair)."""
+    b = 8
+    cfg_a = DS.KVStoreConfig(kernel_impl="auto", **DRIVE_STORE)
+    cfg_c = DS.KVStoreConfig(kernel_impl="chain", **DRIVE_STORE)
+    rng = np.random.default_rng(0)
+    remote = drive_remote(rng).to(DEV)
+    st_a = DS.init_kv_store_batch(cfg_a, b, device=DEV)
+    st_c = DS.init_kv_store_batch(cfg_c, b, device=DEV)
+    reqs = [drive_requests(rng, (b, DRIVE_R)) for _ in range(DRIVE_STEPS)]
+    PG.KERNEL.launches = 0
+    RF.KERNEL.launches = 0
+    for step, req in enumerate(reqs):
+        need, offs, wr = (torch.from_numpy(x).to(DEV) for x in req)
+        st_c, *out_c = DS.step_fetch_batch(st_c, cfg_c, remote, remote, need,
+                                           offs, wr)
+    torch.cuda.synchronize()
+    chain_k2, chain_k1 = PG.KERNEL.launches, RF.KERNEL.launches
+    st_c2 = DS.init_kv_store_batch(cfg_c, b, device=DEV)
+    for step, req in enumerate(reqs):
+        need, offs, wr = (torch.from_numpy(x).to(DEV) for x in req)
+        st_a, *out_a = DS.step_fetch_batch(st_a, cfg_a, remote, remote, need,
+                                           offs, wr)
+        st_c2, *out_c2 = DS.step_fetch_batch(st_c2, cfg_c, remote, remote,
+                                             need, offs, wr)
+        compare_states(st_c2, st_a, f"chain step {step}", exact=True)
+        compare_states(out_c2, out_a, f"chain step {step} out", exact=True)
+    led = DS.ledger(st_a)
+    if chain_k1 != 0 or chain_k2 != 5 * DRIVE_STEPS:
+        raise AssertionError(f"chain launched K1 {chain_k1}, K2 {chain_k2}"
+                             f"; expected 0 and {5 * DRIVE_STEPS}")
+    phase("store_chain", steps=DRIVE_STEPS, batch=b, identical=True,
+          k2_launches=chain_k2, k1_launches=chain_k1,
+          evictions=led["evictions"], dirty_evicts=led["dirty_evicts"])
+    return chain_k2
+
+
+# ------------------------------- serving surface: replicas, telemetry
+REP_C = 2
+
+
+def replicated_reference_phase():
+    """serve_replicated on reduced qwen3-1.7b (f32), C = 2: the card
+    against the CPU, greedy tokens and the whole ledger (unit_bytes
+    included) equal."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    params_cpu = init_model(cfg, torch.Generator().manual_seed(0))
+    params = _to(params_cpu, DEV)
+    prompts = torch.randint(2, 200, (2, 6),
+                            generator=torch.Generator().manual_seed(1))
+    store = DS.KVStoreConfig(num_local_pages=4, page_tokens=2, kv_heads=2,
+                             head_dim=16, page_budget_per_step=2)
+    pcfg = PagedServeConfig(window_pages=2, pages_per_seq=8)
+    scfg = ServeConfig(max_new_tokens=10)
+    tok_c, led_c = serve_replicated(params_cpu, cfg, prompts, scfg, store,
+                                    REP_C, pcfg, device="cpu")
+    tok_g, led_g = serve_replicated(params, cfg, prompts.to(DEV), scfg,
+                                    store, REP_C, pcfg)
+    if not torch.equal(tok_g.cpu(), tok_c):
+        raise AssertionError("replicated greedy tokens differ card/CPU")
+    if set(led_g) != set(led_c):
+        raise AssertionError("ledger keys differ")
+    identical = all(led_g[k] == v for k, v in led_c.items())
+    for k, v in led_c.items():
+        np.testing.assert_allclose(led_g[k], v, **FLOAT_TOL, err_msg=k)
+    if not led_c["dirty_evicts"] > 0:
+        raise AssertionError("reduced replicated serve wrote nothing back")
+    phase("serve_replicated_reference", model="qwen3-1.7b-reduced f32",
+          replicas=REP_C, batch=2, tokens_equal=True,
+          ledger_identical=identical, unit_bytes=led_g["unit_bytes"],
+          wire_bytes=led_g["wire_bytes"])
+
+
+def telemetry_phase():
+    """Reduced serve at telemetry level "trace" over a scheduled link
+    whose module 1 degrades, with a LinkHealthMonitor: the card against
+    the CPU on stall percentiles, every tenant's series rows and the
+    reshard advisories; the spans and series exported to Chrome trace
+    JSON in a temporary directory, parsed back."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    params_cpu = init_model(cfg, torch.Generator().manual_seed(0))
+    params = _to(params_cpu, DEV)
+    prompts = torch.randint(2, 200, (2, 6),
+                            generator=torch.Generator().manual_seed(1))
+    tcfg = TelemetryConfig(level="trace", lat_lo=0.01, lat_hi=1e4)
+    store = DS.KVStoreConfig(num_local_pages=4, page_tokens=2, kv_heads=2,
+                             head_dim=16, page_budget_per_step=2,
+                             fabric=FabricConfig(num_modules=3),
+                             telemetry=tcfg)
+    pcfg = PagedServeConfig(window_pages=2, pages_per_seq=8)
+    sched = (np.array([0.0, 4.0, 9.0], np.float32), np.ones((3, 3)),
+             np.array([[1.0, 1.0, 1.0], [1.0, 0.05, 1.0],
+                       [1.0, 0.05, 1.0]], np.float32))
+    bw = DS.link_bytes_per_step(store)
+    out = {}
+    for where, dev, p in (("cpu", "cpu", params_cpu), ("card", DEV, params)):
+        link = scheduled_link(bw, sched, 3, device=dev)
+        _, led = serve_batch_paged(
+            p, cfg, prompts.to(dev), ServeConfig(max_new_tokens=10), store,
+            pcfg, link=link,
+            health_monitor=LinkHealthMonitor(floor=0.5, patience=2),
+            device=dev)
+        tel = led.pop("_tel")
+        rows = [series_rows(TelemetryState(*(x[b] for x in tel)), tcfg)
+                for b in range(prompts.shape[0])]
+        out[where] = (led, tel, rows)
+    (led_c, tel_c, rows_c), (led_g, tel_g, rows_g) = out["cpu"], out["card"]
+    keys = ("stall_p50_steps", "stall_p90_steps", "stall_p99_steps",
+            "link_reshard_modules")
+    for k in keys:
+        if led_g[k] != led_c[k]:
+            raise AssertionError(f"telemetry {k}: card {led_g[k]} cpu "
+                                 f"{led_c[k]}")
+    if not torch.equal(tel_g.hist.cpu(), tel_c.hist):
+        raise AssertionError("stall histograms differ card/CPU")
+    rows_identical = True
+    for (sg, rg), (sc, rc) in zip(rows_g, rows_c):
+        np.testing.assert_array_equal(sg, sc)
+        rows_identical &= bool(np.array_equal(rg, rc))
+        np.testing.assert_allclose(rg, rc, **FLOAT_TOL)
+    if led_g["link_reshard_modules"] != [1]:
+        raise AssertionError("the degraded module was not advised")
+    counters = counter_events(TelemetryState(*(x[0] for x in tel_g)), tcfg,
+                              DS.SERIES_CHANNELS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        trace_export(str(path), spans=led_g["trace_spans"],
+                     counters=counters, metadata={"serve": 0})
+        doc = json.loads(path.read_text())
+    names = {e["name"] for e in doc["traceEvents"]}
+    want = {"process_name", "prefill", "decode", "decode_step",
+            *DS.SERIES_CHANNELS}
+    if names != want:
+        raise AssertionError(f"trace events {names} != {want}")
+    phase("telemetry", level="trace", stall_p50=led_g["stall_p50_steps"],
+          stall_p90=led_g["stall_p90_steps"],
+          stall_p99=led_g["stall_p99_steps"],
+          reshard=led_g["link_reshard_modules"], hist_equal=True,
+          series_rows_identical=rows_identical,
+          series_rows=sum(len(s) for s, _ in rows_g),
+          trace_events=len(doc["traceEvents"]))
+
+
+PREFILL_RTOL = 0.05     # of the largest magnitude, per compared tensor
+
+
+def prefill_phase(cfg, params, prompts):
+    """Full-width qwen3-1.7b, B = 8, 32-token prompts: one-pass prefill
+    against the token-by-token decode on the card. The two paths multiply
+    in other shapes, so their bf16 roundings differ and compound over 28
+    layers: each compared tensor (last-position logits, each layer's K
+    and V cache) is held within PREFILL_RTOL of its largest magnitude; a
+    wrong position or layer gives differences of the magnitude itself."""
+    opt = ModelOptions(remat="none")
+    b, p = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = prefill(params, cfg, {"tokens": prompts}, p + SERVE_NEW,
+                            opt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dec = init_decode_state(cfg, b, p + SERVE_NEW, opt, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(p):
+        last, dec = decode_step(params, cfg, dec, prompts[:, i:i + 1], i, opt)
+    torch.cuda.synchronize()
+    dec_secs = time.perf_counter() - t0
+
+    def rel(a, c):
+        a, c = a.float(), c.float()
+        if not (torch.isfinite(a).all() and a.shape == c.shape):
+            raise AssertionError("prefill output not finite or misshapen")
+        return float((a - c).abs().max() / c.abs().max())
+
+    err = rel(logits[:, -1], last)
+    cache_err = max(rel(state["runs"][0][key][layer, :, :p],
+                        dec["runs"][0][key][layer, :, :p])
+                    for key in ("k", "v")
+                    for layer in range(cfg.num_layers))
+    if max(err, cache_err) > PREFILL_RTOL:
+        raise AssertionError(f"prefill differs from decode: logits {err}, "
+                             f"caches {cache_err} of their magnitude")
+    if state["runs"][0]["k"][:, :, p:].any():
+        raise AssertionError("prefill wrote past the prompt")
+    v = cfg.vocab_size
+    same_tok = float((logits[:, -1, :v].argmax(-1) == last[:, :v].argmax(-1)
+                      ).float().mean())
+    phase("prefill", model="qwen3-1.7b", batch=b, prompt=p,
+          seconds=f"{secs:.4f}", decode_seconds=f"{dec_secs:.4f}",
+          logits_rel_diff=f"{err:.5f}", cache_rel_diff=f"{cache_err:.5f}",
+          rtol=PREFILL_RTOL, next_token_equal_frac=same_tok)
+
+
+class CaptureK1:
+    """Wraps DS._transact while active: the inputs of its `at`-th call
+    (1-based) are cloned before the call, as the residency kernel's
+    arguments, for checking and timing it at the main path's shapes."""
+
+    def __init__(self, at):
+        self.at, self.calls, self.inputs = at, 0, None
+
+    def __enter__(self):
+        self._orig = DS._transact
+
+        def wrapped(seqs, cfg, remote_k, remote_v, clock, pol, need, wr):
+            self.calls += 1
+            if self.calls == self.at:
+                landed, lpages = poll_arrivals(seqs.eng, clock)
+                self.inputs = tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in (seqs.res, seqs.kpool, seqs.vpool, remote_k,
+                              remote_v, landed, lpages, need, wr, clock,
+                              pol))
+            return self._orig(seqs, cfg, remote_k, remote_v, clock, pol,
+                              need, wr)
+        DS._transact = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        DS._transact = self._orig
+
+
+def serve_replicated_phase(cfg, params, prompts):
+    """Full-width qwen3-1.7b through serve_replicated: C = 2 replicas x
+    B = 8 tenants with the serve cell's store, 32 prompt + 32 new tokens:
+    the replicated serving path. Checks every request counted, bytes
+    conserved on modules and on units, one K1 launch per step over 16
+    sequences. Returns (launch counts, K1's last-step inputs)."""
+    store = DS.KVStoreConfig(**SERVE_STORE)
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW)
+    steps = SERVE_PROMPT + SERVE_NEW
+    seqs = REP_C * SERVE_B
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with CaptureK1(at=steps) as cap:
+        PG.KERNEL.launches = 0
+        RF.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
+                                       REP_C, SERVE_PAGED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"paged_gather": PG.KERNEL.launches,
+                  "fused_residency_step": RF.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    r = SERVE_PAGED.window_pages
+    if counts["fused_residency_step"] != steps or \
+            counts["paged_gather"] != steps:
+        raise AssertionError(f"launches {counts}, expected {steps} each")
+    if led["requests"] != seqs * r * steps:
+        raise AssertionError(f"requests {led['requests']} != C*B*R*steps")
+    for key in ("module_bytes", "unit_bytes"):
+        if abs(sum(led[key]) - led["wire_bytes"]) > \
+                1e-5 * max(led["wire_bytes"], 1.0):
+            raise AssertionError(f"{key} do not sum to wire bytes")
+    if tokens.shape != (REP_C, SERVE_B, steps) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("tokens out of range or of the wrong shape")
+    res = cap.inputs[0]
+    geo = RF.launch_geometry(seqs, res.page.shape[1], res.page.shape[2],
+                             cap.inputs[5].shape[1], r,
+                             cap.inputs[1][0, 0].numel() * 2)
+    if not (2 <= geo.blocks <= RF.MAX_BLOCKS and geo.grid == seqs * geo.blocks
+            and geo.grid <= RF.RESIDENT_PER_SM * RF.NUM_SMS):
+        raise AssertionError(f"K1 geometry at {seqs} sequences: {geo}")
+    phase("serve_replicated", model="qwen3-1.7b", replicas=REP_C,
+          batch=SERVE_B, sequences=seqs, prompt=SERVE_PROMPT, new=SERVE_NEW,
+          seconds=f"{secs:.3f}", steps_per_s=f"{steps / secs:.2f}",
+          tokens_per_s=f"{seqs * SERVE_NEW / secs:.2f}",
+          hit_rate=f"{led['local_hits'] / led['requests']:.4f}",
+          peak_gib=f"{peak / 2**30:.2f}", launches=counts,
+          k1_blocks_per_seq=geo.blocks, k1_grid=geo.grid,
+          unit_bytes=led["unit_bytes"], wire_bytes=led["wire_bytes"])
+    return counts, cap.inputs
+
+
+def replicated_split_phase(cfg, params, prompts, steps=12, timed=8):
+    """ms per decode step of the replicated serve split into model decode
+    and the store's parts (host clock, each part ended by a synchronize),
+    over `steps` steps of the serve_replicated schedule, the last `timed`
+    averaged; then one more step under torch.profiler for the device's
+    busy share of the step."""
+    opt = ModelOptions(remat="none")
+    store = DS.KVStoreConfig(**SERVE_STORE)
+    c, b = REP_C, prompts.shape[0]
+    flat = prompts.repeat(c, 1)
+    state = init_decode_state(cfg, c * b, steps + 1, opt, device=DEV)
+    step = make_decode_fn(cfg, opt)
+    kv = DS.init_kv_store_replicated(store, c, b, device=DEV)
+    rshape = (c * b * SERVE_PAGED.pages_per_seq, store.page_tokens,
+              store.kv_heads, store.head_dim)
+    remote = torch.zeros(rshape, dtype=torch.bfloat16, device=DEV)
+    seq_ids = torch.arange(c * b, dtype=torch.int32, device=DEV)
+    pol = residency.as_policy(store.policy, device=DEV)
+    cus = torch.div(torch.arange(c * b, device=DEV), b,
+                    rounding_mode="floor")
+    active = torch.tensor(True, device=DEV)
+    page_wire = DS._wire_bytes(store, store.page_tokens, store.compress_pages)
+    parts = {"model": [], "transact": [], "remote_fetch": [],
+             "schedule": []}
+
+    def one(i, record):
+        nonlocal state, kv
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        j = i % flat.shape[1]
+        _, state = step(params, state, flat[:, j:j + 1], i, None, 0.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        need, offs, writes = paged_request_window(
+            torch.full((c * b,), i, dtype=torch.int32, device=DEV), seq_ids,
+            store.page_tokens, SERVE_PAGED.window_pages,
+            SERVE_PAGED.pages_per_seq)
+        clock = kv.clock + 1.0
+        seqs, evicted, _, _, hit = DS._transact(
+            kv.seqs, store, remote, remote, clock, pol, need, writes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        DS._remote_fetch(remote, remote, need.reshape(-1), ~hit.reshape(-1),
+                         store.kernel_impl)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        eng, fab, n_wb = DS._writebacks(seqs.eng, kv.fab, store, evicted,
+                                        clock, page_wire)
+        nic = DS._nic_writebacks(kv.nic, n_wb, cus, active, clock,
+                                 page_wire)
+        eng, fab, nic, ls, ps, stalls, _ = DS._schedule(
+            eng, fab, store, need, offs, hit, clock, nic=nic, cus=cus,
+            active=active)
+        stats = DS._stats_fold(seqs.stats, store, ls, ps, stalls, hit, n_wb)
+        kv = DS.ReplicatedKVStoreState(seqs._replace(eng=eng, stats=stats),
+                                       fab, nic, clock)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if record:
+            parts["model"].append(t1 - t0)
+            parts["transact"].append(t2 - t1)
+            parts["remote_fetch"].append(t3 - t2)
+            parts["schedule"].append(t4 - t3)
+        return t4 - t0
+
+    for i in range(steps):
+        one(i, i >= steps - timed)
+    ms = {k: 1e3 * float(np.mean(v)) for k, v in parts.items()}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = one(steps, False)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    step_ms = sum(ms.values())
+    phase("serve_replicated_split_ms",
+          **{k: f"{v:.3f}" for k, v in ms.items()},
+          store_total=f"{ms['transact'] + ms['remote_fetch'] + ms['schedule']:.3f}",
+          steps=timed, profiled_step_ms=f"{1e3 * wall:.3f}",
+          profiled_kernels=len(kernels),
+          device_ms_per_step=(f"{dev_ms:.3f}" if kernels else "not measured"),
+          device_busy_share=(f"{dev_ms / step_ms:.4f}" if kernels
+                             else "not measured"))
+    return ms
+
 
 
 # ------------------------------------------------------------ phase 6: K3
@@ -1010,13 +1526,33 @@ def main():
     k2 = gather_phase(gen)
     k1_err = residency_phase(gen)
     drive_phase()
+    drive_replicated_phase()
+    drive_single_phase()
+    chain_k2 = chain_phase()
     reference_phase()
+    replicated_reference_phase()
+    telemetry_phase()
     cfg, params, prompts, counts = serve_phase()
     k1_inputs, _, kcache = split_phase(cfg, params, prompts)
     k1 = k1_phase(k1_inputs, gen, k1_err)
+    del k1_inputs
+    prefill_phase(cfg, params, prompts)
+    rep_counts, rep_inputs = serve_replicated_phase(cfg, params, prompts)
+    t = k1_timing(rep_inputs, "fused_residency_step_replicated_shape")
+    del rep_inputs
+    k1["max_abs_err"] = max(k1["max_abs_err"], t.pop("max_abs_err"))
+    k1["replicated_shape"] = {"sequences": REP_C * SERVE_B, **t}
+    replicated_split_phase(cfg, params, prompts)
     k1["launches"] = counts["fused_residency_step"]
     k2["launches"] = counts["paged_gather"]
-    del params, k1_inputs            # free the serve phase before training
+    k1["launches_by_path"] = {
+        "serve_batch_paged": counts["fused_residency_step"],
+        "serve_replicated": rep_counts["fused_residency_step"]}
+    k2["launches_by_path"] = {
+        "serve_batch_paged": counts["paged_gather"],
+        "serve_replicated": rep_counts["paged_gather"],
+        "store_chain": chain_k2}
+    del params                       # free the serve phases before training
     gc.collect()
     torch.cuda.empty_cache()
     k3q, k3d = qdq_phase(gen)

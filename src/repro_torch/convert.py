@@ -4,8 +4,10 @@
 layout ``repro.models.model.init_model`` produces, after
 ``jax.device_get`` — and returns the port's tree, so both packages then
 compute the same function. `state_from_numpy` / `state_to_numpy` convert
-a ``BatchedKVStoreState`` field by field (by name), which is how the
-tests hold the port's store against the reference. `opt_state_from_numpy`
+a store state (``KVStoreState``, ``BatchedKVStoreState`` or
+``ReplicatedKVStoreState`` with its NIC bank, telemetry state included)
+field by field (by name), which is how the tests hold the port's store
+against the reference. `opt_state_from_numpy`
 / `opt_state_to_numpy` carry the AdamW state (``{"mu", "nu", "count"}``)
 and `batch_from_numpy` a training batch, so a reference state, batch and
 parameters give the port the same train step. bfloat16 arrays
@@ -18,10 +20,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compute_plane import tree_map
-from repro_torch.core.daemon_store import BatchedKVStoreState, SeqState
+from repro_torch.core.daemon_store import (BatchedKVStoreState,
+                                           KVStoreState,
+                                           ReplicatedKVStoreState, SeqState)
 from repro_torch.core.engine import EngineState
 from repro_torch.core.fabric import FabricState, LinkModel
 from repro_torch.core.residency import ResidencyState
+from repro_torch.core.telemetry import TelemetryState
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import padded_vocab
 
@@ -61,31 +66,50 @@ def _named(cls, src, fn):
     return cls(**{f: fn(getattr(src, f)) for f in cls._fields})
 
 
-def state_from_numpy(state, device=None) -> BatchedKVStoreState:
-    """A batched store state with numpy leaves (e.g. the reference's,
-    after `jax.device_get`) -> the port's; fields are matched by name."""
+def _fabric_from(fab, conv) -> FabricState:
+    return FabricState(
+        **{f: conv(getattr(fab, f)) for f in FabricState._fields
+           if f != "link"},
+        link=_named(LinkModel, fab.link, conv))
+
+
+def _seq_from(s, conv) -> SeqState:
+    return SeqState(
+        kpool=conv(s.kpool), vpool=conv(s.vpool),
+        res=_named(ResidencyState, s.res, conv),
+        eng=_named(EngineState, s.eng, conv),
+        stats={k: conv(v) for k, v in s.stats.items()},
+        tel=None if s.tel is None else _named(TelemetryState, s.tel, conv))
+
+
+def state_from_numpy(state, device=None):
+    """A store state with numpy leaves (e.g. the reference's, after
+    `jax.device_get`) -> the port's, on the card unless `device` says
+    otherwise. The type follows the fields: `seq` makes a KVStoreState,
+    `seqs` a BatchedKVStoreState, `seqs` and `nic` a
+    ReplicatedKVStoreState; fields are matched by name."""
     device = resolve_device(device)
 
     def conv(a):
         return to_tensor(a, device)
 
-    s = state.seqs
-    seqs = SeqState(
-        kpool=conv(s.kpool), vpool=conv(s.vpool),
-        res=_named(ResidencyState, s.res, conv),
-        eng=_named(EngineState, s.eng, conv),
-        stats={k: conv(v) for k, v in s.stats.items()},
-        tel=None)
-    fab = FabricState(
-        **{f: conv(getattr(state.fab, f))
-           for f in FabricState._fields if f != "link"},
-        link=_named(LinkModel, state.fab.link, conv))
-    return BatchedKVStoreState(seqs=seqs, fab=fab, clock=conv(state.clock))
+    clock = conv(state.clock)
+    fab = _fabric_from(state.fab, conv)
+    if hasattr(state, "seq"):
+        return KVStoreState(seq=_seq_from(state.seq, conv), fab=fab,
+                            clock=clock)
+    seqs = _seq_from(state.seqs, conv)
+    if hasattr(state, "nic"):
+        return ReplicatedKVStoreState(seqs=seqs, fab=fab,
+                                      nic=_fabric_from(state.nic, conv),
+                                      clock=clock)
+    return BatchedKVStoreState(seqs=seqs, fab=fab, clock=clock)
 
 
-def state_to_numpy(state: BatchedKVStoreState) -> dict:
-    """The port's store state as a nested dict of numpy arrays, keyed by
-    field name (bfloat16 pools widen to float32)."""
+def state_to_numpy(state) -> dict:
+    """The port's store state (any of the three) as a nested dict of
+    numpy arrays, keyed by field name (bfloat16 pools widen to
+    float32)."""
     def walk(x):
         if isinstance(x, torch.Tensor):
             return to_numpy(x)

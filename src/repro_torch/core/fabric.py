@@ -9,7 +9,8 @@ wire-byte ledgers. Channel arithmetic delegates to ``bandwidth``.
 
 Module indices `mc` are 0-d int tensors; every read and update goes
 through `gather`/`scatter`, so a transition never reads a value back to
-the host. The multi-device merge (``reduce_deltas``) is not ported yet.
+the host. The multi-device merge (``reduce_deltas``) is not ported yet:
+it needs ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -93,13 +94,25 @@ def _segment(link: LinkModel, now) -> torch.Tensor:
     return torch.clamp(idx, 0, k - 1).reshape(())
 
 
+def sample_link(link: LinkModel, mc, now
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bandwidth multiplier, health) of module `mc` at time `now`."""
+    flat = _segment(link, now) * link.bw.shape[0] + mc
+    return (_at(link.sched_mult.reshape(-1), flat),
+            _at(link.health.reshape(-1), flat))
+
+
 def link_bw_at(link: LinkModel, mc, now) -> torch.Tensor:
     """Effective bandwidth of module `mc`'s link at time `now` — the
     only bandwidth sampler."""
-    m = link.bw.shape[0]
-    flat = _segment(link, now) * m + mc
-    return (_at(link.bw, mc) * _at(link.sched_mult.reshape(-1), flat)
-            * _at(link.health.reshape(-1), flat))
+    mult, health = sample_link(link, mc, now)
+    return _at(link.bw, mc) * mult * health
+
+
+def module_health(link: LinkModel, now) -> torch.Tensor:
+    """(M,) health mask of every module's link at time `now` — what the
+    serving loop feeds `runtime.fault.LinkHealthMonitor`."""
+    return link.health.index_select(0, _segment(link, now).reshape(1))[0]
 
 
 # ------------------------------------------------------------ fabric state
@@ -162,6 +175,11 @@ def backlog(fab: FabricState, mc, now) -> Tuple[torch.Tensor, torch.Tensor]:
     return line, page
 
 
+def total_bytes(fab: FabricState) -> torch.Tensor:
+    """Total wire bytes across every module and channel."""
+    return fab.line_bytes.sum() + fab.page_bytes.sum() + fab.wb_bytes.sum()
+
+
 # ------------------------------------------------- adaptive repartitioning
 def adapt_ratio_at(fab: FabricState, mc, now, *, adaptive: bool, r_idle,
                    page_unit, line_occ, page_occ,
@@ -217,10 +235,10 @@ def serve_dual_at(fab: FabricState, mc, *, partition: bool, now,
 
 
 def serve_writeback_at(fab: FabricState, mc, t_ready, nbytes: float, *,
-                       gate) -> Tuple[FabricState, torch.Tensor]:
+                       gate, now=None) -> Tuple[FabricState, torch.Tensor]:
     """Serialize an eviction writeback on module `mc`'s reverse channel
-    at the link bandwidth sampled at `t_ready`."""
-    bw = link_bw_at(fab.link, mc, t_ready)
+    at the link bandwidth sampled at `now` (defaults to `t_ready`)."""
+    bw = link_bw_at(fab.link, mc, t_ready if now is None else now)
     busy, done = bandwidth.occupy_busy(_at(fab.wb_busy, mc), t_ready,
                                        nbytes, bw, gate=gate)
     zero = torch.zeros((), dtype=F32, device=bw.device)

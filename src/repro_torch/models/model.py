@@ -2,13 +2,13 @@
 forward and loss, and the decode path.
 
 PyTorch counterpart of ``repro.models.model``: `init_model`, `forward`,
-`loss_fn`, `init_decode_state` and `decode_step` for configs whose every
-block is an attention block with a dense SwiGLU MLP (qwen3, yi,
-minitron). The reference's `lax.scan` over a run of stacked layers is a
-Python loop over the run's (L,) axis; `jax.checkpoint` around the scan
+`loss_fn`, `init_decode_state`, `decode_step` and `prefill` for configs
+whose every block is an attention block with a dense SwiGLU MLP (qwen3,
+yi, minitron). The reference's `lax.scan` over a run of stacked layers is
+a Python loop over the run's (L,) axis; `jax.checkpoint` around the scan
 body is `torch.utils.checkpoint` around each layer. MoE, the recurrent
-and hybrid block kinds, cross attention and `prefill` are not ported yet
-and raise.
+and hybrid block kinds, cross attention, the frontends and zamba's shared
+attention are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from repro_torch.configs.base import ATTN, ArchConfig
 from repro_torch.core.compute_plane import tree_leaves
 from repro_torch.models.attention import (attention, decode_attention,
                                           init_attention, init_kv_cache)
-from repro_torch.models.layers import (F32, embed, init_embedding, init_mlp,
+from repro_torch.models.layers import (F32, apply_rope, dot, embed,
+                                       init_embedding, init_mlp,
                                        init_rms_norm, mlp, rms_norm,
                                        softmax_xent, unembed)
 
@@ -105,19 +106,32 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 # ==========================================================================
 def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
                  positions=None, collect_kv=False):
-    """Returns (x, aux, kv_or_None)."""
+    """Returns (x, aux, kv_or_None): with `collect_kv`, the block's K and
+    V for a decode cache, recomputed from the normed input (K through
+    k_norm, then RoPE at `positions`), as the reference does."""
     if kind != ATTN:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    if enc is not None or collect_kv:
-        raise NotImplementedError("cross attention and prefill's KV "
-                                  "collection are not ported")
+    if enc is not None:
+        raise NotImplementedError("cross attention is not ported")
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = rms_norm(x, p["norm1"]["scale"])
-    x = x + attention(p["attn"], cfg, h, positions=positions, causal=causal,
-                      window=window, flash_threshold=opt.flash_threshold,
-                      triangular=opt.triangular_flash)
+    y = attention(p["attn"], cfg, h, positions=positions, causal=causal,
+                  window=window, flash_threshold=opt.flash_threshold,
+                  triangular=opt.triangular_flash)
+    kv = None
+    if collect_kv:
+        dt = h.dtype
+        k = dot(h, p["attn"]["wk"].to(dt), "btd,dkh->btkh").to(dt)
+        if "k_norm" in p["attn"]:
+            k = rms_norm(k, p["attn"]["k_norm"])
+        k = apply_rope(k, positions if positions is not None
+                       else torch.arange(h.shape[1], device=h.device),
+                       cfg.rope_theta)
+        v = dot(h, p["attn"]["wv"].to(dt), "btd,dkh->btkh").to(dt)
+        kv = {"k": k.to(dt), "v": v.to(dt)}
+    x = x + y
     h = rms_norm(x, p["norm2"]["scale"])
-    return x + mlp(p["ffn"], h), aux, None
+    return x + mlp(p["ffn"], h), aux, kv
 
 
 _MATMULS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
@@ -161,21 +175,25 @@ def _unstack(tree, count: int):
 def _run_scan(run_params, kind, x, cfg, opt, *, causal=True, window=0,
               enc=None, positions=None, collect_kv=False):
     """Run a stack of identical blocks with stacked (L, ...) params.
-    Returns (x, aux, None)."""
+    Returns (x, aux, kvs): with `collect_kv`, kvs = {"k", "v"} stacked
+    (L, B, S, K, H), else None."""
     count = tree_leaves(run_params)[0].shape[0]
     aux = torch.zeros((), dtype=F32, device=x.device)
 
     def body(xx, layer_p):
-        xx, a, _ = _apply_block(kind, layer_p, cfg, xx, opt, causal=causal,
-                                window=window, enc=enc, positions=positions,
-                                collect_kv=collect_kv)
-        return xx, a
+        return _apply_block(kind, layer_p, cfg, xx, opt, causal=causal,
+                            window=window, enc=enc, positions=positions,
+                            collect_kv=collect_kv)
 
     step = _remat(body, opt)
+    kvs = []
     for layer_p in _unstack(run_params, count):
-        x, a = step(x, layer_p)
+        x, a, kv = step(x, layer_p)
         aux = aux + a
-    return x, aux, None
+        kvs.append(kv)
+    if not collect_kv:
+        return x, aux, None
+    return x, aux, {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
 
 
 def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
@@ -241,3 +259,28 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
     x = rms_norm(x, params["final_norm"]["scale"])
     logits = unembed(params["unembed"], x)[:, 0, :]
     return logits, state
+
+
+def prefill(params, cfg: ArchConfig, batch, max_len: int,
+            opt: ModelOptions):
+    """One-pass prefill: the forward over `batch["tokens"]` (B, S) and a
+    decode-ready state whose KV caches (max_len positions) hold the
+    prompt's K and V from row 0. Returns (logits (B, S, vocab_padded)
+    f32, state)."""
+    _check_ported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens.long(), dtype)
+    positions = torch.arange(s, device=x.device)
+    window = _window(cfg, opt)
+    state = init_decode_state(cfg, b, max_len, opt, device=x.device)
+    for (kind, _), run_params, run_state in zip(
+            _plan(cfg), params["runs"], state["runs"]):
+        x, _, kv = _run_scan(run_params, kind, x, cfg, opt, causal=True,
+                             window=window, positions=positions,
+                             collect_kv=True)
+        run_state["k"][:, :, :s] = kv["k"]
+        run_state["v"][:, :, :s] = kv["v"]
+    x = rms_norm(x, params["final_norm"]["scale"])
+    return unembed(params["unembed"], x), state

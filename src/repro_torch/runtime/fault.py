@@ -2,9 +2,11 @@
 plane).
 
 Copied from ``repro.runtime.fault`` (pure Python): `StepWatchdog` bounds
-per-step wall time and `StragglerDetector` flags persistent outliers
-against a robust step-time median. The restart loop and the fabric's
-`LinkHealthMonitor` are not ported yet.
+per-step wall time, `StragglerDetector` flags persistent outliers
+against a robust step-time median, and `LinkHealthMonitor` watches the
+fabric's per-module link health during paged serving. The restart loop
+(`run_with_restarts`) is not ported yet: it needs the checkpoint
+manager.
 """
 from __future__ import annotations
 
@@ -61,3 +63,64 @@ class StragglerDetector:
         if not self._times:
             return None
         return sorted(self._times)[len(self._times) // 2]
+
+
+@dataclass
+class LinkHealthMonitor:
+    """Per-module link watchdog over the fabric's health masks.
+
+    `observe(health)` takes the (M,) health vector `fabric.module_health`
+    samples at a decode step and returns the module ids for which a
+    reshard/re-placement is advised (route their pages elsewhere, shrink
+    the module set — the serving analogue of evicting a straggler host).
+
+    Two triggers, per module:
+      * relative — the module's inverse health rides its own
+        `StragglerDetector`, so a link that collapses vs its own recent
+        median is flagged by exactly the straggler machinery (factor x
+        median over a rolling window, `patience` consecutive strikes);
+      * absolute — health below `floor` for `patience` consecutive
+        observations (hard failures flag without a 10-step history).
+
+    Once flagged, a module stays flagged until its health recovers above
+    `floor` (`flagged` property lists the currently-advised set).
+    `observe` returns — and logs — only flag *transitions*, so a module
+    that stays degraded for hundreds of decode steps is advised once,
+    not once per step.
+    """
+    floor: float = 0.5
+    factor: float = 3.0
+    patience: int = 3
+    window: int = 50
+    _detectors: dict = field(default_factory=dict)
+    _floor_strikes: dict = field(default_factory=dict)
+    _flagged: set = field(default_factory=set)
+
+    def observe(self, health) -> List[int]:
+        advised = []
+        for m, h in enumerate(health):
+            h = float(h)
+            det = self._detectors.setdefault(
+                m, StragglerDetector(factor=self.factor,
+                                     patience=self.patience,
+                                     window=self.window))
+            relative = det.observe(1.0 / max(h, 1e-6))
+            if h < self.floor:
+                self._floor_strikes[m] = self._floor_strikes.get(m, 0) + 1
+            else:
+                self._floor_strikes[m] = 0
+            if relative or self._floor_strikes.get(m, 0) >= self.patience:
+                if m not in self._flagged:
+                    self._flagged.add(m)
+                    advised.append(m)
+                    log.warning("link health: module %d degraded "
+                                "(health=%.3f) — reshard advised", m, h)
+            elif h >= self.floor:
+                # recovered above the floor with no active relative
+                # strike: clear the advisory (flags latch while degraded)
+                self._flagged.discard(m)
+        return advised
+
+    @property
+    def flagged(self) -> List[int]:
+        return sorted(self._flagged)

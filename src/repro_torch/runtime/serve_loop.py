@@ -1,33 +1,49 @@
-"""Serving loop: batched autoregressive decode with the DaeMon paged-KV
-store in the loop.
+"""Serving loop: batched autoregressive decode with greedy/temperature
+sampling, and the DaeMon paged-KV store in the loop.
 
-PyTorch counterpart of ``repro.runtime.serve_loop``.
-`serve_batch_paged` runs the decode cell token by token (prefill
-included, as the reference does) and per step drives the batched
-two-tier store with each sequence's hot-page window: B tenants, each
-with its own local pool, page table and engine, share one fabric. The
-decode computes from its dense cache; the store is the movement plane of
-the disaggregated KV tier, and its ledger is the cost report.
+PyTorch counterpart of ``repro.runtime.serve_loop``. All three loops run
+the decode cell token by token (prefill included, as the reference
+does):
 
-Everything runs on the card unless the caller passes device="cpu".
-`serve_batch`, `serve_replicated`, and the health-monitor and span
-recorder hooks are not ported yet.
+- `serve_batch`: plain batched decode;
+- `serve_batch_paged`: the same decode with the batched two-tier store in
+  the loop — per step each of B tenant sequences requests its hot-page
+  window; tenants, each with its own local pool, page table and engine,
+  share one fabric. The decode computes from its dense cache; the store
+  is the movement plane of the disaggregated KV tier, and its ledger is
+  the cost report. A `runtime.fault.LinkHealthMonitor` can watch the
+  link's sampled module health (`link_reshard_modules` in the ledger);
+- `serve_replicated`: C serving replicas x B tenants each against one
+  memory-side fabric, every replica's transfers also serialized on its
+  own NIC (`step_fetch_replicated`, two-leg pricing) — the serving form
+  of the paper's multiple-compute-components axis (fig 22).
+
+A `runtime.obs.SpanRecorder` (passed in, or made when the store's
+telemetry level is "trace") captures prefill and decode spans; they come
+back in the ledger as `trace_spans`, and the store's telemetry state as
+`_tel`. Everything runs on the card unless the caller passes
+device="cpu". Mesh placement of the replicas (`mesh=`) is not ported.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import residency
 from repro_torch.core.daemon_store import (KVStoreConfig,
                                            init_kv_store_batch,
+                                           init_kv_store_replicated,
                                            ledger as store_ledger,
-                                           step_fetch_batch)
+                                           step_fetch_batch,
+                                           step_fetch_replicated)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (ModelOptions, decode_step,
                                       init_decode_state)
+from repro_torch.runtime.obs import SpanRecorder
 
 
 @dataclass(frozen=True)
@@ -44,6 +60,21 @@ class PagedServeConfig:
     pages_per_seq: int = 32   # remote-tier pages reserved per tenant
 
 
+def _maybe_recorder(recorder, store_cfg):
+    """The caller's recorder, or a new one when the store's telemetry
+    level is "trace". Span ends synchronize the device, so trace-level
+    runs serialize the launch queue at every span."""
+    if recorder is None and store_cfg is not None \
+            and store_cfg.telemetry.trace_on:
+        recorder = SpanRecorder()
+    return recorder
+
+
+def _span(rec, name, **args):
+    """`rec.span(...)` or a no-op context yielding a writable dict."""
+    return nullcontext({}) if rec is None else rec.span(name, **args)
+
+
 def make_decode_fn(cfg: ArchConfig, opt: ModelOptions):
     """step(params, state, tokens, pos, gen, temperature) -> (next (B,1)
     int32, state): greedy argmax over the logical vocab, or a sample at
@@ -58,6 +89,40 @@ def make_decode_fn(cfg: ArchConfig, opt: ModelOptions):
             nxt = logits.argmax(dim=-1, keepdim=True)
         return nxt.to(torch.int32), state
     return step
+
+
+def serve_batch(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
+                opt: ModelOptions = None, recorder=None, device=None):
+    """prompts: (B, P) int. Returns (B, P + max_new_tokens) int32 tokens.
+
+    The prompt runs token by token through the same decode cell (exact,
+    and the reference's order); `models.model.prefill` is the one-pass
+    alternative. `recorder` (optional `runtime.obs.SpanRecorder`)
+    captures prefill and decode spans."""
+    device = resolve_device(device)
+    opt = opt or ModelOptions(remat="none")
+    prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
+    b, p = prompts.shape
+    state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
+                              device=device)
+    step = make_decode_fn(cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(scfg.seed)
+    # zero-length prompts skip prefill and decode from a BOS-like token 0
+    nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    with _span(recorder, "prefill", tokens=p) as sp:
+        for i in range(p):
+            nxt, state = step(params, state, prompts[:, i:i + 1], i, gen,
+                              scfg.temperature)
+        sp["sync"] = nxt
+    tok = nxt
+    out = [prompts]
+    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+        for i in range(scfg.max_new_tokens):
+            out.append(tok)
+            tok, state = step(params, state, tok, p + i, gen,
+                              scfg.temperature)
+        sp["sync"] = tok
+    return torch.cat(out, dim=1)
 
 
 def paged_request_window(positions, seq_ids, page_tokens: int,
@@ -94,27 +159,29 @@ def serve_batch_paged(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
 
     prompts: (B, P) int. `link` (optional `fabric.LinkModel`, knot times
     in decode steps) makes the fabric's bandwidth and health
-    time-varying. Returns (tokens (B, P + max_new_tokens), ledger dict).
-    """
-    if health_monitor is not None or recorder is not None:
-        raise NotImplementedError("health_monitor and recorder need "
-                                  "runtime/fault.py and runtime/obs.py, "
-                                  "which are not ported yet")
+    time-varying; `health_monitor` (optional
+    `runtime.fault.LinkHealthMonitor`) then watches the module health
+    sampled after every step, and the ledger gains
+    `link_reshard_modules`, the modules it advised resharding. The
+    schedule is copied to the host once and sampled there, so watching
+    adds no device round trip to the loop. `recorder` as in
+    `serve_batch` (prefill, decode and per-step spans).
+
+    Returns (tokens (B, P + max_new_tokens), ledger dict)."""
     device = resolve_device(device)
-    opt = opt or ModelOptions()
+    opt = opt or ModelOptions(remat="none")
+    recorder = _maybe_recorder(recorder, store_cfg)
     prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
     b, p = prompts.shape
-    max_len = p + scfg.max_new_tokens
-    state = init_decode_state(cfg, b, max_len, opt, device=device)
+    state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
+                              device=device)
     step = make_decode_fn(cfg, opt)
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
 
     kv = init_kv_store_batch(store_cfg, b, link=link, device=device)
-    n_remote = b * pcfg.pages_per_seq
-    rshape = (n_remote, store_cfg.page_tokens, store_cfg.kv_heads,
-              store_cfg.head_dim)
-    remote_k = torch.zeros(rshape, dtype=torch.bfloat16, device=device)
-    remote_v = torch.zeros(rshape, dtype=torch.bfloat16, device=device)
+    watch_health, reshard_advised = _health_watch(health_monitor, link)
+    remote_k, remote_v = _remote_pool(store_cfg, b * pcfg.pages_per_seq,
+                                      device)
     seq_ids = torch.arange(b, dtype=torch.int32, device=device)
     pol = residency.as_policy(store_cfg.policy, device=device)
 
@@ -128,17 +195,136 @@ def serve_batch_paged(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
                                              policy=pol)
         return kv_state
 
-    out = [prompts]
     # zero-length prompts skip prefill and decode from a BOS-like token 0
     nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
-    for i in range(p):
-        nxt, state = step(params, state, prompts[:, i:i + 1], i, gen,
-                          scfg.temperature)
-        kv = kv_step(kv, i)
+    with _span(recorder, "prefill", tokens=p) as sp:
+        for i in range(p):
+            nxt, state = step(params, state, prompts[:, i:i + 1], i, gen,
+                              scfg.temperature)
+            kv = kv_step(kv, i)
+            watch_health(i + 1)
+        sp["sync"] = (nxt, kv.fab.page_busy)
     tok = nxt
-    gen_toks = []
-    for i in range(scfg.max_new_tokens):
-        gen_toks.append(tok)
-        tok, state = step(params, state, tok, p + i, gen, scfg.temperature)
-        kv = kv_step(kv, p + i)
-    return torch.cat(out + gen_toks, dim=1), store_ledger(kv)
+    out = [prompts]
+    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+        for i in range(scfg.max_new_tokens):
+            out.append(tok)
+            with _span(recorder, "decode_step", tid=1, step=i) as s2:
+                tok, state = step(params, state, tok, p + i, gen,
+                                  scfg.temperature)
+                kv = kv_step(kv, p + i)
+                s2["sync"] = (tok, kv.fab.page_busy)
+            watch_health(p + i + 1)
+        sp["sync"] = tok
+    led = store_ledger(kv)
+    if health_monitor is not None:
+        led["link_reshard_modules"] = sorted(reshard_advised)
+    return torch.cat(out, dim=1), _finish_ledger(led, kv, recorder)
+
+
+def _health_watch(health_monitor, link):
+    """(watch(clock_step), advised set): `watch` feeds the monitor the
+    module health of the host copy of `link`'s schedule at a decode
+    step; a no-op without a monitor or a link."""
+    advised = set()
+    if health_monitor is None or link is None:
+        return (lambda clock_step: None), advised
+    sched_t = link.sched_t.detach().cpu().numpy()
+    sched_health = link.health.detach().cpu().numpy()
+
+    def watch(clock_step: int):
+        seg = np.clip(np.searchsorted(sched_t, clock_step, side="right")
+                      - 1, 0, len(sched_t) - 1)
+        advised.update(health_monitor.observe(sched_health[seg]))
+    return watch, advised
+
+
+def _remote_pool(store_cfg: KVStoreConfig, pages: int, device):
+    """Zeroed remote-tier K and V pools of `pages` pages."""
+    shape = (pages, store_cfg.page_tokens, store_cfg.kv_heads,
+             store_cfg.head_dim)
+    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+
+def _finish_ledger(led: dict, kv, recorder) -> dict:
+    """Add the spans (`trace_spans`) and the raw telemetry state (`_tel`,
+    tensors, not JSON: writers pop it first) to a loop's ledger."""
+    if recorder is not None:
+        led["trace_spans"] = recorder.events
+    if kv.seqs.tel is not None:
+        led["_tel"] = kv.seqs.tel
+    return led
+
+
+def serve_replicated(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
+                     store_cfg: KVStoreConfig, num_replicas: int,
+                     pcfg: PagedServeConfig = PagedServeConfig(),
+                     opt: ModelOptions = None, link=None, recorder=None,
+                     mesh=None, device=None):
+    """Replicated serving: C serving replicas x B tenants each, one
+    shared memory-side fabric.
+
+    Each replica decodes its own copy of the B prompts; the C*B
+    sequences decode as one batch, and per step `step_fetch_replicated`
+    drives the store: every replica's page migrations queue on the same
+    per-module memory channels and also serialize on the replica's own
+    NIC bank. Each of the C*B tenants owns a distinct region of one
+    shared remote KV pool.
+
+    Returns (tokens (C, B, P + max_new_tokens), ledger dict, including
+    per-module `module_bytes` and per-replica `unit_bytes`)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "serve_replicated(mesh=...) places the replicas on devices "
+            "through torch.distributed, which is not ported yet "
+            "(ROADMAP Queue 1 item 14)")
+    device = resolve_device(device)
+    opt = opt or ModelOptions(remat="none")
+    recorder = _maybe_recorder(recorder, store_cfg)
+    c = num_replicas
+    prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
+    b, p = prompts.shape
+    flat_prompts = prompts.repeat(c, 1)                    # (C*B, P)
+    state = init_decode_state(cfg, c * b, p + scfg.max_new_tokens, opt,
+                              device=device)
+    step = make_decode_fn(cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(scfg.seed)
+
+    kv = init_kv_store_replicated(store_cfg, c, b, link=link,
+                                  device=device)
+    remote_k, remote_v = _remote_pool(
+        store_cfg, c * b * pcfg.pages_per_seq, device)
+    seq_ids = torch.arange(c * b, dtype=torch.int32, device=device)
+    pol = residency.as_policy(store_cfg.policy, device=device)
+    shape = (c, b, pcfg.window_pages)
+
+    def kv_step(kv_state, pos: int):
+        need, offs, writes = paged_request_window(
+            torch.full((c * b,), pos, dtype=torch.int32, device=device),
+            seq_ids, store_cfg.page_tokens, pcfg.window_pages,
+            pcfg.pages_per_seq)
+        kv_state, _, _, _ = step_fetch_replicated(
+            kv_state, store_cfg, remote_k, remote_v, need.reshape(shape),
+            offs.reshape(shape), writes.reshape(shape), policy=pol)
+        return kv_state
+
+    # zero-length prompts skip prefill and decode from a BOS-like token 0
+    nxt = torch.zeros((c * b, 1), dtype=torch.int32, device=device)
+    with _span(recorder, "prefill", tokens=p) as sp:
+        for i in range(p):
+            nxt, state = step(params, state, flat_prompts[:, i:i + 1], i,
+                              gen, scfg.temperature)
+            kv = kv_step(kv, i)
+        sp["sync"] = (nxt, kv.fab.page_busy)
+    tok = nxt
+    out = [flat_prompts]
+    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+        for i in range(scfg.max_new_tokens):
+            out.append(tok)
+            tok, state = step(params, state, tok, p + i, gen,
+                              scfg.temperature)
+            kv = kv_step(kv, p + i)
+        sp["sync"] = (tok, kv.fab.page_busy)
+    tokens = torch.cat(out, dim=1).reshape((c, b, -1))
+    return tokens, _finish_ledger(store_ledger(kv), kv, recorder)

@@ -367,3 +367,39 @@ def test_kernels_match_plain_on_card():
             assert torch.equal(got_k, want)
             assert torch.equal(got_v, ops.paged_gather(pool + 1, idx, m,
                                                        impl="ref"))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card_at_replicated_shapes():
+    """The replicated store and the chain comparator run the kernels at
+    shapes no other check holds: K1 over C*B = 16 sequences and over one
+    sequence (`step_fetch`), and K2 on one pool at the chain's gathers
+    (landing lanes B*k masked by `landed`, lookups B*R over the pools
+    viewed flat as (B*N, row))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check "
+                    "on the card")
+    dev = torch.device("cuda")
+    for b in (16, 1):
+        for c in (dict(s=16, w=4, p=9), dict(s=1, w=12, p=9)):
+            args = _to_torch(_with_landing_requests(
+                _rand_case(b, b=b, row=(4, 1, 8), **c)))
+            args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else
+                         TR.ResidencyState(*(x.to(dev) for x in a))
+                         for a in args)
+            for pol_name in POLICY_NAMES:
+                pol = TR.as_policy(pol_name, device=dev)
+                clone = tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args)
+                ref = ops.residency_fused(*clone, pol, impl="ref")
+                got = ops.residency_fused(*args, pol, impl="cuda")
+                for name, x, y in zip(OUT_NAMES, _flat(ref), _flat(got)):
+                    assert torch.equal(x, y), (b, pol_name, name)
+    for b, n, rows in ((16, 64, 16 * 9), (16, 64, 16 * 4), (1, 64, 4)):
+        pool = torch.randn(b * n, 16, 8, 128, device=dev).to(torch.bfloat16)
+        idx = torch.randint(0, b * n, (rows,), device=dev,
+                            dtype=torch.int32)
+        mask = torch.rand(rows, device=dev) < 0.5
+        for m in (None, mask):
+            assert torch.equal(ops.paged_gather(pool, idx, m, impl="cuda"),
+                               ops.paged_gather(pool, idx, m, impl="ref"))

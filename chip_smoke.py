@@ -13,8 +13,16 @@ and through `serve_replicated` (2 replicas x 8 tenants) with the DaeMon
 KV store in the loop, and one-pass `prefill` against the token-by-token
 decode. Then it trains: the card against the CPU on reduced qwen3-1.7b,
 and four steps at full width with the int8-compressed pod-gradient sync
-on the block-int8 kernels. It checks every result and imports nothing of
-JAX or of the reference package.
+on the block-int8 kernels. Last it runs the request-level simulator
+(`repro_torch.sim`): the seed golden (pr and dr, 9 schemes x 3 nets, r =
+6000) held to tests/golden/seed_movement_golden.json (`[sim_golden]`),
+every lattice axis (schemes x link-profile nets x active compute units x
+policies, telemetry on) on the card against the CPU with two-endpoint
+byte conservation (`[sim_axes]`), and the paper's fig-8 lattice at r =
+6000 with its first 200 requests under sync-debug mode "error" and 50
+under torch.profiler (`[sim_fig8]`); the simulator reaches no hand
+kernel, and each phase checks that none was launched. It checks every
+result and imports nothing of JAX or of the reference package.
 
 The store's kernels are also timed at the store benchmark's shapes
 (the paged gather at L = 256 rows, with L2 warm and cold; the residency
@@ -60,6 +68,8 @@ from repro_torch.core import compression  # noqa: E402
 from repro_torch.core import daemon_store as DS  # noqa: E402
 from repro_torch.core import residency  # noqa: E402
 from repro_torch.core.engine import poll_arrivals  # noqa: E402
+from repro_torch.core import compute_plane as CP  # noqa: E402
+from repro_torch.core import fabric as FAB  # noqa: E402
 from repro_torch.core.compute_plane import tree_leaves  # noqa: E402
 from repro_torch.core.fabric import FabricConfig, scheduled_link  # noqa
 from repro_torch.core.telemetry import (TelemetryConfig,  # noqa: E402
@@ -81,6 +91,12 @@ from repro_torch.runtime.serve_loop import (  # noqa: E402
     serve_batch_paged, serve_replicated)
 from repro_torch.runtime.train_loop import (  # noqa: E402
     TrainConfig, make_grads_fn, make_train_step, split_pods)
+from repro_torch.core.params import NetworkParams  # noqa: E402
+from repro_torch.sim import desim as SIM  # noqa: E402
+from repro_torch.sim import (SCHEMES, WORKLOADS, SimConfig,  # noqa: E402
+                             generate_trace)
+from repro_torch.sim.schemes import PAPER_FIG8  # noqa: E402
+from repro_torch.sim.workloads import make_link_schedule  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_MS = 3.35e12 / 1e3      # H100 SXM device memory, bytes/ms
@@ -1519,6 +1535,283 @@ def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
     return ms
 
 
+# ------------------------------------------------------ phase 9: simulator
+GOLDEN = ROOT / "tests" / "golden" / "seed_movement_golden.json"
+# the paper's fig-8 network grid (benchmarks/common.py NETWORK_GRID):
+# switch latency (ns) x network bandwidth factor
+FIG8_NETS = tuple((sw, bf) for sw in (100.0, 400.0) for bf in (2.0, 4.0, 8.0))
+# benchmarks/run.py --quick replays 20000 requests; at ~19 ms of host
+# time per request that phase alone took 387 s on the card, so the
+# smoke run replays the golden's 6000 to stay within half its time limit
+FIG8_R = 6000
+AXES_SCHEMES = ("daemon", "daemon-adaptive", "bp", "remote")
+AXES_R = 1200
+SYNC_GUARD = 200                    # requests run under sync-debug "error"
+PROFILED = 50                       # requests run under torch.profiler
+
+
+def _sim_nets(pairs, **kw):
+    return [SIM.make_net(NetworkParams(bw_factor=bf, switch_latency_ns=sw),
+                         **kw) for sw, bf in pairs]
+
+
+def _zero_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _launches():
+    """Launches of every hand kernel since `_zero_launches`: the
+    simulator reaches none (the reference's desim reaches no Pallas
+    kernel)."""
+    return {k.symbol: k.launches for k in KERNELS}
+
+
+class StepWatch:
+    """Watches one lattice's request loop by wrapping `desim.make_step`:
+    requests [0, guard) run under `torch.cuda.set_sync_debug_mode(
+    "error")`, so any host synchronization in the loop raises, and
+    requests [start, start + n) under torch.profiler, whose CUDA kernels
+    give the device time and launches per request."""
+
+    def __init__(self, guard=0, start=None, n=0):
+        self.guard, self.start, self.n = guard, start, n
+        self.calls = 0
+        self.kernels = []
+        self.prof = None
+
+    def __enter__(self):
+        self.orig = SIM.make_step
+
+        def make_step(*args, **kw):
+            step = self.orig(*args, **kw)
+
+            def watched(st, inp):
+                i = self.calls
+                if i == 0 and self.guard:
+                    torch.cuda.set_sync_debug_mode("error")
+                if i == self.start:
+                    torch.cuda.synchronize()
+                    self.prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    self.prof.start()
+                out = step(st, inp)
+                self.calls += 1
+                if self.calls == self.guard:
+                    torch.cuda.set_sync_debug_mode(0)
+                if self.start is not None and self.calls == self.start \
+                        + self.n:
+                    torch.cuda.synchronize()
+                    self.prof.stop()
+                    self.kernels = [
+                        e for e in self.prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                return out
+            return watched
+
+        SIM.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        SIM.make_step = self.orig
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def sim_golden_phase():
+    """The seed golden on the card: pr and dr at r = 6000, 9 schemes x 3
+    nets, one simulate_lattice call each, every metric within rtol 1e-5,
+    atol 1e-6 (read as tests/test_movement_plane.py:49-65 reads it)."""
+    golden = json.loads(GOLDEN.read_text())
+    names, r = golden["schemes"], golden["r"]
+    nets = _sim_nets(golden["net_pairs"])
+    worst, secs, cells = 0.0, {}, 0
+    _zero_launches()
+    for wl in ("pr", "dr"):
+        rec = golden["workloads"][wl]
+        tr = generate_trace(WORKLOADS[wl], r, seed=rec["seed"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SIM.simulate_lattice([SCHEMES[s] for s in names], SimConfig(),
+                                   tr, nets, rec["comp_ratio"], device=DEV)
+        secs[wl] = time.perf_counter() - t0
+        for i, s in enumerate(names):
+            for j in range(len(nets)):
+                want = rec["schemes"][s][j]
+                if set(res[i][j]) != set(want):
+                    raise AssertionError(f"{wl}/{s}: metric keys differ")
+                for key, new in res[i][j].items():
+                    old = want[key]
+                    np.testing.assert_allclose(
+                        new, old, rtol=1e-5, atol=1e-6,
+                        err_msg=f"{wl}/{s}/net{j}/{key}")
+                    if new != old:
+                        worst = max(worst, abs(new - old) / abs(old))
+                cells += 1
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the simulator launched a kernel: {launches}")
+    phase("sim_golden", workloads="pr,dr", schemes=len(names),
+          nets=len(nets), requests=r, cells=cells, max_rel_err=worst, seconds_pr=f"{secs['pr']:.3f}",
+          seconds_dr=f"{secs['dr']:.3f}",
+          host_ms_per_request=f"{1e3 * secs['pr'] / r:.3f},"
+          f"{1e3 * secs['dr'] / r:.3f}", hand_kernel_launches=0)
+
+
+def _one_bin_apart(a, b, cfg):
+    """Percentiles equal, or the midpoints of adjacent histogram bins (a
+    sample within an ulp of a bin edge can bin differently when `log`
+    rounds differently on the two devices)."""
+    if a == b:
+        return True
+    step = math.log(cfg.lat_hi / cfg.lat_lo) / cfg.bins
+    return a > 0 and b > 0 and abs(abs(math.log(a / b)) - step) < 1e-3 * step
+
+
+def sim_axes_phase():
+    """Every lattice axis on the card against the port on the CPU:
+    daemon, daemon-adaptive, bp, remote x 2 nets under a `burst` link
+    schedule x active C in (1, 2, 4) at num_cu = 4, num_mc = 2 x the 4
+    policies, telemetry "histogram", r = 1200. Counts exact, clocks and
+    metrics bit-equal or within the golden tolerance, percentiles equal
+    or one bin apart. Then two-endpoint byte conservation on the card's
+    final states at C = 1 and 4, whose every leaf equals the CPU's."""
+    w = WORKLOADS["pr"]
+    tr = generate_trace(w, AXES_R, seed=1)
+    horizon = float(np.sum(tr.gap)) * 2.0
+    cfg = SimConfig(num_cu=4, num_mc=2)
+    sched = make_link_schedule("burst", horizon, cfg.num_mc)
+    nets = _sim_nets(((100.0, 4.0), (400.0, 8.0)), num_mc=cfg.num_mc,
+                     schedule=sched)
+    tel = TelemetryConfig(level="histogram")
+    kw = dict(active_cus=(1, 2, 4), policies=POLICIES, telemetry_cfg=tel)
+    schemes = [SCHEMES[s] for s in AXES_SCHEMES]
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = SIM.simulate_lattice(schemes, cfg, tr, nets, w.comp_ratio,
+                                device=DEV, **kw)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = SIM.simulate_lattice(schemes, cfg, tr, nets, w.comp_ratio,
+                               device="cpu", **kw)
+    cpu_secs = time.perf_counter() - t0
+    counts = ("pages_moved", "lines_moved", "page_drops")
+    cells = equal = pct_moved = 0
+    worst = 0.0
+    for i, s in enumerate(AXES_SCHEMES):
+        for j in range(len(nets)):
+            for c in range(3):
+                for p, pol in enumerate(POLICIES):
+                    a, b = card[i][j][c][p], cpu[i][j][c][p]
+                    where = f"{s}/net{j}/c{c}/{pol}"
+                    if set(a) != set(b) or "p99_access_ns" not in a:
+                        raise AssertionError(f"{where}: metric keys")
+                    cells += 1
+                    equal += a == b
+                    for key, v in b.items():
+                        if key in counts:
+                            if a[key] != v:
+                                raise AssertionError(f"{where}/{key}")
+                        elif key.startswith("p") and key.endswith(
+                                "_access_ns"):
+                            if not _one_bin_apart(a[key], v, tel):
+                                raise AssertionError(f"{where}/{key}")
+                            pct_moved += a[key] != v
+                        else:
+                            np.testing.assert_allclose(
+                                a[key], v, rtol=1e-5, atol=1e-6,
+                                err_msg=f"{where}/{key}")
+                            if a[key] != v:
+                                worst = max(worst, abs(a[key] - v) / abs(v))
+    # two-endpoint byte conservation on the final states
+    ledgers = []
+    for c in (1, 4):
+        fin = SIM.run_trace(SCHEMES["daemon-adaptive"], cfg, tr, nets[0],
+                            w.comp_ratio, active_cu=c, policy="rrip",
+                            telemetry_cfg=tel, device=DEV)
+        ref = SIM.run_trace(SCHEMES["daemon-adaptive"], cfg, tr, nets[0],
+                            w.comp_ratio, active_cu=c, policy="rrip",
+                            telemetry_cfg=tel, device="cpu")
+        compare_states(fin, ref, f"run_trace C={c}")
+        total = float(fin.stats["net_bytes"])
+        module = float(FAB.total_bytes(fin.net))
+        unit = float(CP.unit_bytes(fin.nic).sum())
+        if not (total > 0 and abs(module - total) <= 1e-5 * total):
+            raise AssertionError(f"C={c}: module bytes {module} != {total}")
+        if c > 1 and abs(unit - total) > 1e-5 * total:
+            raise AssertionError(f"C={c}: NIC bytes {unit} != {total}")
+        if c == 1 and unit != 0.0:
+            raise AssertionError("C=1: the NIC bank carried bytes")
+        ledgers.append(f"C{c}:{total:.0f}/{module:.0f}/{unit:.0f}")
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the simulator launched a kernel: {launches}")
+    phase("sim_axes", cells=cells, lanes=cells, requests=AXES_R,
+          card_equals_cpu_cells=equal, max_rel_err=worst,
+          percentiles_one_bin_apart=pct_moved,
+          seconds=f"{secs:.3f}", cpu_seconds=f"{cpu_secs:.3f}",
+          host_ms_per_request=f"{1e3 * secs / AXES_R:.3f}",
+          bytes_stats_module_nic=",".join(ledgers),
+          run_trace_card_equals_cpu=True, hand_kernel_launches=0)
+
+
+def sim_fig8_phase():
+    """The paper's fig-8 lattice: PAPER_FIG8 x the 6 NETWORK_GRID nets on
+    pr at r = FIG8_R. The first 200 requests run under sync-debug mode
+    "error"; requests 200-249 under torch.profiler. Prints the
+    simulator's speed on the card and the simulated DaeMon/Remote
+    speedup geomean over the nets (the simulator's output, not a card
+    speed)."""
+    w = WORKLOADS["pr"]
+    tr = generate_trace(w, FIG8_R, seed=1)
+    nets = _sim_nets(FIG8_NETS)
+    schemes = [SCHEMES[s] for s in PAPER_FIG8]
+    _zero_launches()
+    with StepWatch(guard=SYNC_GUARD, start=SYNC_GUARD, n=PROFILED) as watch:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SIM.simulate_lattice(schemes, SimConfig(), tr, nets,
+                                   w.comp_ratio, device=DEV)
+        secs = time.perf_counter() - t0
+    if watch.calls != FIG8_R:
+        raise AssertionError(f"{watch.calls} steps for {FIG8_R} requests")
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the simulator launched a kernel: {launches}")
+    for i, s in enumerate(PAPER_FIG8):
+        for j in range(len(nets)):
+            cell = res[i][j]
+            if not all(math.isfinite(v) for v in cell.values()):
+                raise AssertionError(f"{s}/net{j}: non-finite metric")
+            if not (cell["total_time_ns"] > 0 and
+                    0.0 <= cell["hit_ratio"] <= 1.0):
+                raise AssertionError(f"{s}/net{j}: {cell}")
+    t = {s: [res[i][j]["total_time_ns"] for j in range(len(nets))]
+         for i, s in enumerate(PAPER_FIG8)}
+    speedup = float(np.exp(np.mean(np.log(
+        np.asarray(t["remote"]) / np.asarray(t["daemon"])))))
+    if not speedup > 1.0:
+        raise AssertionError(f"DaeMon no faster than Remote: {speedup}")
+    host_ms = 1e3 * secs / FIG8_R
+    dev_ms = sum(e.time_range.elapsed_us() for e in watch.kernels) / 1e3
+    kernels = len(watch.kernels)
+    phase("sim_fig8", workload="pr", schemes=len(schemes), nets=len(nets),
+          lanes=len(schemes) * len(nets), requests=FIG8_R,
+          seconds=f"{secs:.3f}", requests_per_s=f"{FIG8_R / secs:.2f}",
+          host_ms_per_request=f"{host_ms:.3f}",
+          sync_debug_requests=SYNC_GUARD, profiled_requests=PROFILED,
+          kernels_per_request=(f"{kernels / PROFILED:.1f}" if kernels
+                               else "not measured"),
+          device_ms_per_request=(f"{dev_ms / PROFILED:.4f}" if kernels
+                                 else "not measured"),
+          device_busy_share=(f"{dev_ms / PROFILED / host_ms:.4f}"
+                             if kernels else "not measured"),
+          daemon_vs_remote_speedup_geomean=f"{speedup:.4f}",
+          hand_kernel_launches=0)
+
+
 def main():
     name, smi = device_phase()
     build_phase()
@@ -1561,6 +1854,12 @@ def main():
     tcfg, params, opt_state, step_fn, k3_counts = train_phase()
     k3q["launches"], k3d["launches"] = k3_counts
     train_split_phase(tcfg, params, opt_state, step_fn)
+    del params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim_golden_phase()
+    sim_axes_phase()
+    sim_fig8_phase()
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3q, k3d, k4c, k4d]}))
     print(json.dumps({"ok": True, "device": {

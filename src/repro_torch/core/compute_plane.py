@@ -88,17 +88,25 @@ def replicate(tree, num_units: int):
 
 def unit_slice(tree, cu):
     """One unit's slice of a (C, ...)-leading tree; `cu` an int or a 0-d
-    index tensor (read on the device, no host sync)."""
-    return tree_map(lambda a: a.index_select(
-        0, torch.as_tensor(cu, device=a.device).reshape(1).long())[0], tree)
+    index tensor (read on the device, no host sync). With one unit the
+    slice is a view: `cu` can only be 0."""
+    def take(a):
+        if a.shape[0] == 1:
+            return a[0]
+        return a.index_select(
+            0, torch.as_tensor(cu, device=a.device).reshape(1).long())[0]
+    return tree_map(take, tree)
 
 
 def unit_update(tree, cu, new):
     """Scatter one unit's updated slice back into the (C, ...) tree
-    (out of place)."""
+    (out of place; with one unit, the slice itself)."""
     def put(a, n):
+        n = n.to(a.dtype).unsqueeze(0)
+        if a.shape[0] == 1:
+            return n
         idx = torch.as_tensor(cu, device=a.device).reshape(1).long()
-        return a.index_copy(0, idx, n.to(a.dtype).unsqueeze(0))
+        return a.index_copy(0, idx, n)
     return tree_map(put, tree, new)
 
 
@@ -124,7 +132,9 @@ def mean_last(x: torch.Tensor) -> torch.Tensor:
     total = torch.zeros(x.shape[:-1], dtype=F32, device=x.device)
     for i in range(n):
         total = total + x[..., i].to(F32)
-    return total * torch.tensor(1.0 / n, dtype=F32, device=x.device)
+    # a Python float operand is rounded to f32 and multiplied in f32 on
+    # both devices, with no copy from the host
+    return total * (1.0 / n)
 
 
 def nic_link_for(mem_link: LinkModel, num_units: int) -> LinkModel:
@@ -155,7 +165,7 @@ def init_nic_bank(num_units: int, link: LinkModel = None, ratio=0.25,
 
 # ---------------------------------------------------------- two-leg service
 def serve_dual_two_leg(mem: FabricState, nic: FabricState, mc, cu, *,
-                       partition: bool, now, line_ready, line_bytes,
+                       partition, now, line_ready, line_bytes,
                        line_gate, page_ready, page_bytes, page_gate,
                        active) -> Tuple[FabricState, FabricState,
                                         torch.Tensor, torch.Tensor,
@@ -164,7 +174,8 @@ def serve_dual_two_leg(mem: FabricState, nic: FabricState, mc, cu, *,
     unit `cu`'s NIC (same ready times and bytes); the NIC leg's gates
     are ANDed with `active`. Returns (mem', nic', line_done, page_done,
     line_done_mod, page_done_mod): the combined completions (the later
-    leg when active) and the module leg's."""
+    leg when active) and the module leg's. `partition` is a Python bool
+    or a bool tensor (`bandwidth.shares`)."""
     active = torch.as_tensor(active, dtype=torch.bool,
                              device=mem.line_busy.device)
     mem, l_mod, p_mod = fabric.serve_dual_at(

@@ -106,8 +106,9 @@ def gate_tree(gate, old, new):
 
 # ------------------------------------------------------------- selection
 def select_granularity(st: EngineState, page_id, now, *,
-                       selection_enabled: bool, always_both: bool,
-                       module_pressure) -> Tuple[torch.Tensor, torch.Tensor]:
+                       selection_enabled, always_both,
+                       module_pressure=0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """§4.2 selection granularity unit -> (send_line, send_page) bools.
 
     * page not scheduled  -> always send the line; schedule the page too
@@ -118,6 +119,10 @@ def select_granularity(st: EngineState, page_id, now, *,
       been issued yet at `now`.
     * always_both bypasses the selection (still dedups inflight pages and
       full buffers).
+
+    The two mode flags are Python bools (the store's static config: the
+    branch is taken on the host) or bool tensors (the simulator's scheme
+    axis: both are `torch.where`-selected, as in the reference).
     """
     page_found, pidx = find(st.page_key, page_id)
     page_room, _ = first_free(st.page_key)
@@ -128,12 +133,18 @@ def select_granularity(st: EngineState, page_id, now, *,
     page_issued = page_found & (_at(st.page_issue, pidx) <= now)
     line_if_inflight = (sb_util < page_util + module_pressure) & ~page_issued
     selected = torch.where(page_found, line_if_inflight, True)
-    if always_both:
-        send_line = torch.ones_like(selected)
-    elif selection_enabled:
-        send_line = selected
+    if isinstance(always_both, bool) and isinstance(selection_enabled,
+                                                    bool):
+        if always_both:
+            send_line = torch.ones_like(selected)
+        elif selection_enabled:
+            send_line = selected
+        else:
+            send_line = ~page_found
     else:
-        send_line = ~page_found
+        send_line = torch.where(always_both, torch.ones_like(selected),
+                                torch.where(selection_enabled, selected,
+                                            ~page_found))
     return send_line & sb_room, send_page
 
 

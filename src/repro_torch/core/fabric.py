@@ -138,7 +138,8 @@ EMA_ALPHA = 0.08
 
 def init_fabric(cfg: FabricConfig, link: LinkModel = None, ratio=0.25,
                 device=None) -> FabricState:
-    """Fresh channel bank; `ratio` seeds the carried partition ratio."""
+    """Fresh channel bank; `ratio` (a float or a 0-d tensor) seeds the
+    carried partition ratio of every module."""
     m = cfg.num_modules
     if link is None:
         link = constant_link(1.0, m, device=device)
@@ -146,11 +147,13 @@ def init_fabric(cfg: FabricConfig, link: LinkModel = None, ratio=0.25,
     def z():
         return torch.zeros((m,), dtype=F32, device=device)
 
+    if isinstance(ratio, torch.Tensor):
+        ratio = ratio.to(F32).expand(m).clone()
+    else:
+        ratio = torch.full((m,), ratio, dtype=F32, device=device)
     return FabricState(line_busy=z(), page_busy=z(), wb_busy=z(),
                        line_bytes=z(), page_bytes=z(), wb_bytes=z(),
-                       ratio=torch.full((m,), ratio, dtype=F32,
-                                        device=device),
-                       line_rate=z(), page_rate=z(), link=link)
+                       ratio=ratio, line_rate=z(), page_rate=z(), link=link)
 
 
 # ------------------------------------------------------------- placement
@@ -181,12 +184,17 @@ def total_bytes(fab: FabricState) -> torch.Tensor:
 
 
 # ------------------------------------------------- adaptive repartitioning
-def adapt_ratio_at(fab: FabricState, mc, now, *, adaptive: bool, r_idle,
-                   page_unit, line_occ, page_occ,
+def adapt_ratio_at(fab: FabricState, mc, now, *, adaptive, r_idle,
+                   page_unit, line_occ=0.0, page_occ=0.0,
                    gain=0.25) -> FabricState:
-    """One controller step on module `mc`'s carried partition ratio
-    (a no-op unless `adaptive`)."""
-    if not adaptive:
+    """One controller step on module `mc`'s carried partition ratio.
+
+    `adaptive` is a Python bool or a bool tensor. A bool decides on the
+    host: False returns `fab` unchanged and launches nothing. A tensor
+    computes the new ratio and selects it with `torch.where`, as the
+    reference does, so static schemes carry their seed ratio bit for
+    bit."""
+    if isinstance(adaptive, bool) and not adaptive:
         return fab
     line_bl, page_bl = backlog(fab, mc, now)
     bw = link_bw_at(fab.link, mc, now)
@@ -196,17 +204,20 @@ def adapt_ratio_at(fab: FabricState, mc, now, *, adaptive: bool, r_idle,
     new = bandwidth.adapt_ratio(
         _at(fab.ratio, mc), _at(fab.line_rate, mc), _at(fab.page_rate, mc),
         saturation=load_t / (load_t + tau), r_idle=r_idle, gain=gain)
+    if not isinstance(adaptive, bool):
+        new = torch.where(adaptive, new, _at(fab.ratio, mc))
     return fab._replace(ratio=_put(fab.ratio, mc, new))
 
 
 # -------------------------------------------------------------- service
-def serve_dual_at(fab: FabricState, mc, *, partition: bool, now,
-                  line_ready, line_bytes: float, line_gate,
-                  page_ready, page_bytes: float, page_gate
+def serve_dual_at(fab: FabricState, mc, *, partition, now,
+                  line_ready, line_bytes, line_gate,
+                  page_ready, page_bytes, page_gate
                   ) -> Tuple[FabricState, torch.Tensor, torch.Tensor]:
     """One dual-granularity service step on module `mc`'s link: samples
     the bandwidth at `now`, serves through `bandwidth.serve_dual`, and
-    accrues the gated bytes and the offered-demand EMAs.
+    accrues the gated bytes and the offered-demand EMAs. `partition` is
+    a Python bool or a bool tensor; the byte counts floats or tensors.
 
     Returns (fabric', line_done, page_done)."""
     bw = link_bw_at(fab.link, mc, now)
@@ -234,7 +245,7 @@ def serve_dual_at(fab: FabricState, mc, *, partition: bool, now,
     return fab, line_done, page_done
 
 
-def serve_writeback_at(fab: FabricState, mc, t_ready, nbytes: float, *,
+def serve_writeback_at(fab: FabricState, mc, t_ready, nbytes, *,
                        gate, now=None) -> Tuple[FabricState, torch.Tensor]:
     """Serialize an eviction writeback on module `mc`'s reverse channel
     at the link bandwidth sampled at `now` (defaults to `t_ready`)."""

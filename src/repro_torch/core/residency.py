@@ -6,11 +6,15 @@ of N ways) carrying, per slot, the resident page id, a policy age clock, a
 ``ready`` time (the in-flight tag), a dirty bit and an RRIP re-reference
 prediction value.
 
-Every leaf carries an explicit leading batch axis: ``(B, S, W)``. The JAX
-package writes the primitives for one table and ``vmap``s them; here each
-primitive takes the batch directly, and the per-request arguments are
-``(B, R)``. Policies are traced data (``PolicyFlags`` of 0-d tensors), so
-one code path serves LRU, FIFO, RRIP and dirty-averse by ``torch.where``.
+The store's primitives (``lookup``, ``touch``, ``mark_dirty``,
+``insert``, ``evict_order_sets``, ``landing_victims``) take an explicit
+leading batch axis, ``(B, S, W)`` tables and ``(B, R)`` per-request
+arguments. The simulator's per-request primitives (``lookup_one``,
+``evict_victim``) take one ``(S, W)`` table and 0-d indices, as the
+reference's do; the simulator lifts them over its lattice with
+``torch.func.vmap``. Policies are data (``PolicyFlags`` of 0-d tensors,
+``stack_policies`` for a policy axis), so one code path serves LRU, FIFO,
+RRIP and dirty-averse by ``torch.where``.
 
 The arithmetic is the reference's, op for op, so that page ids, metadata
 and victim order agree exactly:
@@ -79,6 +83,12 @@ def as_policy(pol, device=None) -> PolicyFlags:
         rrip=torch.tensor(pol.rrip, dtype=torch.bool, device=device))
 
 
+def stack_policies(pols, device=None) -> PolicyFlags:
+    """Stack policies along a leading axis (the lattice's policy axis)."""
+    flags = [as_policy(p, device) for p in pols]
+    return PolicyFlags(*(torch.stack(leaves) for leaves in zip(*flags)))
+
+
 # ------------------------------------------------------------------- state
 class ResidencyState(NamedTuple):
     """Batched set-associative page table. All leaves (B, S, W)."""
@@ -106,6 +116,23 @@ def num_sets(res: ResidencyState) -> int:
     return res.page.shape[-2]
 
 
+def geometry(n_pages: int, local_frac: float, ways: int) -> int:
+    """Capacity arithmetic -> number of sets: the local tier holds
+    ``local_frac`` of an ``n_pages`` footprint, at least one full set."""
+    cap = max(ways, int(n_pages * local_frac))
+    return max(1, cap // ways)
+
+
+def capacity(res: ResidencyState) -> int:
+    return res.page.shape[-2] * res.page.shape[-1]
+
+
+def occupancy(res: ResidencyState) -> torch.Tensor:
+    """Resident (inserted) slot count of each table — never exceeds
+    `capacity` (0-d for one table, (B,) for a batch)."""
+    return (res.page >= 0).sum(dim=(-2, -1))
+
+
 def _flat(t: torch.Tensor) -> torch.Tensor:
     """(B, S, W) -> (B, S*W) flat slot view."""
     return t.reshape(t.shape[0], -1)
@@ -119,6 +146,22 @@ def _slots(res: ResidencyState, set_idx, way) -> torch.Tensor:
 def set_index(res: ResidencyState, page) -> torch.Tensor:
     """page id -> set (low-order index bits; S=1 maps everything to 0)."""
     return page.to(I32) % num_sets(res)
+
+
+def lookup_one(res: ResidencyState, set_idx, page, now
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Probe one set of one (S, W) table for `page` -> (present, way,
+    ready_ok), each 0-d. `present` is the CAM match, `ready_ok` the
+    in-flight tag check (the slot's data has landed by `now`); a miss
+    reports way 0. Indices stay tensors (no host read)."""
+    w = res.page.shape[-1]
+    row = res.page.index_select(0, set_idx.reshape(1).long())[0]
+    hit_vec = row == page
+    present = hit_vec.any()
+    way = hit_vec.to(I32).argmax()
+    slot = (set_idx.long() * w + way).reshape(1)
+    ready_ok = res.ready.reshape(-1).gather(0, slot).reshape(()) <= now
+    return present, way, ready_ok
 
 
 def lookup(res: ResidencyState, pages, now
@@ -215,6 +258,27 @@ def _score(age, dirty, rrpv, pol: PolicyFlags) -> torch.Tensor:
     base = age + torch.where(dirty, pol.dirty_penalty * span, zero)
     rr = (RRPV_MAX - rrpv) * span + (age - amin)
     return torch.where(pol.rrip, rr, base)
+
+
+def evict_victim(res: ResidencyState, set_idx, pol) -> torch.Tensor:
+    """Victim way within one set of one (S, W) table (the simulator's
+    per-request eviction): the first minimum of the set's scores, 0-d
+    int64."""
+    pol = as_policy(pol, res.age.device)
+    idx = set_idx.reshape(1).long()
+
+    def row(t):
+        return t.index_select(0, idx)[0]
+
+    return _score(row(res.age), row(res.dirty), row(res.rrpv),
+                  pol).argmin()
+
+
+def evict_order(res: ResidencyState, pol) -> torch.Tensor:
+    """All ways of a FULLY-ASSOCIATIVE tier (S=1) in eviction order,
+    (W,) for one table or (B, W) for a batch; stable, so equal scores
+    keep slot order."""
+    return evict_order_sets(res, as_policy(pol, res.age.device))[..., 0, :]
 
 
 def evict_order_sets(res: ResidencyState, pol: PolicyFlags) -> torch.Tensor:

@@ -107,7 +107,9 @@ def init_state(cfg: Optional[TelemetryConfig], channels: int,
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=F32, device=like.device)
+    """`x` as a 0-d f32 tensor, filled on `like`'s device (no copy from
+    the host, so no synchronization)."""
+    return torch.full((), x, dtype=F32, device=like.device)
 
 
 def record_latency(tel: Optional[TelemetryState], cfg: TelemetryConfig,

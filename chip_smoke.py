@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a,
-into build/repro_torch/), holds each kernel bit for bit against its plain
-PyTorch version, drives the store through every stepper (batched,
-replicated at C = 1, 2, 3, single-sequence, and the chain comparator), the
-card against the CPU or the fused path, then serves: reduced qwen3-1.7b
-card against CPU (paged, replicated, and at telemetry level "trace" with a
-link-health monitor), full-width qwen3-1.7b through `serve_batch_paged`
-and through `serve_replicated` (2 replicas x 8 tenants) with the DaeMon
-KV store in the loop, and one-pass `prefill` against the token-by-token
-decode. Then it trains: the card against the CPU on reduced qwen3-1.7b,
+into build/repro_torch/), holds each kernel bit for bit against its
+plain PyTorch version, drives the store through every stepper (batched,
+replicated at C = 1, 2, 3, single-sequence, and the chain comparator),
+the card against the CPU or the fused path, then serves: reduced
+qwen3-1.7b card against CPU (paged, replicated, and at telemetry level
+"trace" with a link-health monitor), full-width qwen3-1.7b through
+`serve_batch_paged` and through `serve_replicated` (2 replicas x 8
+tenants) with the DaeMon KV store in the loop, and one-pass `prefill`
+against the token-by-token decode. The MoE and Mamba2-hybrid families
+follow: reduced olmoe-1b-7b and zamba2-2.7b (the latter on an 8-token
+ring KV cache) card against CPU (`[families_reference]`), then each at
+full width through `serve_batch_paged` (`[serve_olmoe]`,
+`[serve_zamba2]`: bf16, B = 8, a store of the model's own KV geometry,
+so K1 and K2 run at 64 KB and 80 KB page rows and are held bit for bit
+there). Then it trains: the card against the CPU on reduced qwen3-1.7b,
 and four steps at full width with the int8-compressed pod-gradient sync
 on the block-int8 kernels. Last it runs the request-level simulator
 (`repro_torch.sim`): the seed golden (pr and dr, 9 schemes x 3 nets, r =
@@ -24,24 +30,26 @@ under torch.profiler (`[sim_fig8]`); the simulator reaches no hand
 kernel, and each phase checks that none was launched. It checks every
 result and imports nothing of JAX or of the reference package.
 
-The store's kernels are also timed at the store benchmark's shapes
-(the paged gather at L = 256 rows, with L2 warm and cold; the residency
+The store's kernels are also timed at the store benchmark's shapes (the
+paged gather at L = 256 rows, with L2 warm and cold; the residency
 transaction at B = 64, 256 x 16 slots, 16 in-flight lanes) and the
 residency transaction at the replicated serve's last step (16
 sequences).
 
 Output: one line per phase; then the card's name and power limit as
-nvidia-smi prints them; then one JSON line with each kernel's launches on
-its path (serving for the store's kernels, per path in
-`launches_by_path`; training for the quantizer; its own phase for BDI,
-which no path reaches), its time against its bound, the plain version's
-time and the library call's; and last `{"ok": true, "device": {...}}`.
-Any failure raises and exits non-zero before those lines. Without a CUDA
-device, or without the repository around it, it exits non-zero at once.
+nvidia-smi prints them; then one JSON line with each kernel's launches
+on its path (serving for the store's kernels, per path in
+`launches_by_path`, the family serve paths included; training for the
+quantizer; its own phase for BDI, which no path reaches), its time
+against its bound, the plain version's time and the library call's; and
+last `{"ok": true, "device": {...}}`. Any failure raises and exits
+non-zero before those lines. Without a CUDA device, or without the
+repository around it, it exits non-zero at once.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -81,6 +89,8 @@ from repro_torch.kernels import paged_gather as PG  # noqa: E402
 from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
                                       init_decode_state, init_model, prefill)
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
@@ -196,10 +206,11 @@ def build_phase():
 
 
 # ---------------------------------------------------------------- phase 3
-def gather_case(gen, pool_rows, rows):
-    """A bf16 remote pool of `pool_rows` (16, 8, 128) rows (32 KB each),
-    `rows` random indices and a random half mask."""
-    pool = torch.randn((pool_rows, 16, 8, 128), generator=gen, device=DEV
+def gather_case(gen, pool_rows, rows, row=(16, 8, 128)):
+    """A bf16 remote pool of `pool_rows` rows of shape `row` (by default
+    qwen3-1.7b's (16, 8, 128) pages, 32 KB each), `rows` random indices
+    and a random half mask."""
+    pool = torch.randn((pool_rows,) + row, generator=gen, device=DEV
                        ).to(torch.bfloat16)
     idx = torch.randint(0, pool_rows, (rows,), generator=gen, device=DEV,
                         dtype=torch.int32)
@@ -254,6 +265,32 @@ def gather_timing(pool, idx):
     }
 
 
+def gather_check(pool, idx, mask):
+    """K2 bit for bit against its plain version on `pool`, one pool and
+    the K/V pair (the V pool is `pool` reversed), masked and unmasked,
+    with `idx` and with indices past both ends. Returns max |err|."""
+    pool_rows, rows = pool.shape[0], idx.shape[0]
+    pool_v = torch.flip(pool, (0,))
+    edge = idx.clone()
+    edge[:3] = torch.tensor([-1, -pool_rows - 5, pool_rows + 7])
+    err = 0.0
+    for ix in (idx, edge):
+        for m in (None, mask):
+            got = PG.paged_gather(pool, ix, m)
+            got_k, got_v = PG.paged_gather_pair(pool, pool_v, ix, m)
+            want = REF.paged_gather(pool, ix, m)
+            want_v = REF.paged_gather(pool_v, ix, m)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got_k, want)
+                    and torch.equal(got_v, want_v)):
+                raise AssertionError(f"paged_gather != plain at L={rows} "
+                                     f"(mask={m is not None}, row "
+                                     f"{tuple(pool.shape[1:])})")
+            err = max(err, max_abs_err([got, got_k, got_v],
+                                       [want, want, want_v]))
+    return err
+
+
 def gather_phase(gen):
     """K2 bit for bit, one pool and the K/V pair, masked and unmasked, at
     the serving shape (remote pool 8*64 rows of (16, 8, 128) bf16, L = 32
@@ -264,29 +301,14 @@ def gather_phase(gen):
     errs, times = [], {}
     for pool_rows, rows in ((8 * 64, 32), (64 * 64, 256)):
         pool, idx, mask = gather_case(gen, pool_rows, rows)
-        pool_v = torch.flip(pool, (0,))
-        edge = idx.clone()
-        edge[:3] = torch.tensor([-1, -pool_rows - 5, pool_rows + 7])
-        for ix in (idx, edge):
-            for m in (None, mask):
-                got = PG.paged_gather(pool, ix, m)
-                got_k, got_v = PG.paged_gather_pair(pool, pool_v, ix, m)
-                want = REF.paged_gather(pool, ix, m)
-                want_v = REF.paged_gather(pool_v, ix, m)
-                torch.cuda.synchronize()
-                if not (torch.equal(got, want) and torch.equal(got_k, want)
-                        and torch.equal(got_v, want_v)):
-                    raise AssertionError(f"paged_gather != plain at L={rows} "
-                                         f"(mask={m is not None})")
-                errs.append(max_abs_err([got, got_k, got_v],
-                                        [want, want, want_v]))
+        errs.append(gather_check(pool, idx, mask))
         t = gather_timing(pool, idx)
         if rows == 256:
             t.update(gather_cold(gen, pool, rows))
         phase("paged_gather", exact=True, rows=rows, pool_rows=pool_rows,
               row_bytes=pool[0].numel() * pool.element_size(), **t)
         times[rows] = t
-        del pool, pool_v
+        del pool
     t = times[32]
     return {
         "name": "paged_gather", "route": "cuda",
@@ -541,15 +563,19 @@ def serve_phase():
     return cfg, params, prompts, counts
 
 
-def split_phase(cfg, params, prompts):
+def split_phase(cfg, params, prompts, store=None, new=SERVE_NEW,
+                arch=None):
     """ms per decode step split into model decode and the store's parts
     (host clock, each part ended by a synchronize), over the same decode
-    schedule as serve_batch_paged; returns the residency kernel's inputs
-    at the last step, for timing it at the main path's shapes."""
+    schedule as serve_batch_paged with `store` (default the serve cell's)
+    and `new` tokens after the prompt; returns the residency kernel's
+    inputs at the last step, for timing it at the main path's shapes, the
+    split, and the decode state. With `arch`, the line names the model
+    first."""
     opt = ModelOptions()
-    store = DS.KVStoreConfig(**SERVE_STORE)
+    store = store or DS.KVStoreConfig(**SERVE_STORE)
     b, p = prompts.shape
-    state = init_decode_state(cfg, b, p + SERVE_NEW, opt, device=DEV)
+    state = init_decode_state(cfg, b, p + new, opt, device=DEV)
     step = make_decode_fn(cfg, opt)
     gen = torch.Generator(device=DEV).manual_seed(0)
     kv = DS.init_kv_store_batch(store, b, device=DEV)
@@ -562,7 +588,7 @@ def split_phase(cfg, params, prompts):
              "schedule": []}
     tok = prompts[:, :1]
     k1_inputs = None
-    for i in range(p + SERVE_NEW):
+    for i in range(p + new):
         timed = i >= p
         if i < p:
             tok = prompts[:, i:i + 1]
@@ -576,7 +602,7 @@ def split_phase(cfg, params, prompts):
             store.page_tokens, SERVE_PAGED.window_pages,
             SERVE_PAGED.pages_per_seq)
         clock = kv.clock + 1.0
-        if i == p + SERVE_NEW - 1:
+        if i == p + new - 1:
             landed, lpages = poll_arrivals(kv.seqs.eng, clock)
             k1_inputs = (kv.seqs.res, kv.seqs.kpool, kv.seqs.vpool, remote,
                          remote, landed, lpages, need, writes, clock, pol)
@@ -608,9 +634,10 @@ def split_phase(cfg, params, prompts):
             parts["schedule"].append(t4 - t3)
         tok = nxt
     ms = {k: 1e3 * float(np.mean(v)) for k, v in parts.items()}
-    phase("step_split_ms", **{k: f"{v:.3f}" for k, v in ms.items()},
+    phase("step_split_ms", **({} if arch is None else {"arch": arch}),
+          **{k: f"{v:.3f}" for k, v in ms.items()},
           store_total=f"{ms['transact'] + ms['remote_fetch'] + ms['schedule']:.3f}")
-    return k1_inputs, ms, state["runs"][0]["k"]
+    return k1_inputs, ms, state
 
 
 def k1_bound_bytes(k1_inputs):
@@ -1537,6 +1564,199 @@ def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
 
 # ------------------------------------------------------ phase 9: simulator
 GOLDEN = ROOT / "tests" / "golden" / "seed_movement_golden.json"
+# ------------------------------------------------------- model families
+FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b")
+# each full-width family cell: (short name, prompt tokens, new tokens);
+# zamba2's 54 mamba layers make its step the longer, so it runs 16 + 16
+FAMILY_SERVE = {"olmoe-1b-7b": ("olmoe", 32, 32),
+                "zamba2-2.7b": ("zamba2", 16, 16)}
+FAMILY_WINDOW = 8       # the reduced hybrid's ring window: its runs wrap it
+FAMILY_DECODE = 16      # decode steps compared card against CPU
+
+
+def families_reference_phase():
+    """The card against the CPU on reduced olmoe-1b-7b and zamba2-2.7b
+    (f32; zamba2 with an 8-token window on the ring cache, so the 16-token
+    serve and decode wrap it): serve_batch_paged's ledger through the
+    kernels equals the plain versions' on the CPU within rtol 1e-5, atol
+    1e-6, and the decode's logits agree within 1e-3, as in
+    [reference]."""
+    store = DS.KVStoreConfig(num_local_pages=4, page_tokens=2, kv_heads=2,
+                             head_dim=16, page_budget_per_step=2)
+    pcfg = PagedServeConfig(window_pages=2, pages_per_seq=8)
+    scfg = ServeConfig(max_new_tokens=FAMILY_DECODE - 6)
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        opt = ModelOptions(remat="none")
+        if cfg.shared_attn_every:
+            cfg = dataclasses.replace(cfg, window=FAMILY_WINDOW)
+            opt = ModelOptions(remat="none", window_ring=True)
+        params_cpu = init_model(cfg, torch.Generator().manual_seed(0))
+        params = _to(params_cpu, DEV)
+        prompts = torch.randint(2, 200, (2, 6),
+                                generator=torch.Generator().manual_seed(1))
+        tok_c, led_c = serve_batch_paged(params_cpu, cfg, prompts, scfg,
+                                         store, pcfg, opt=opt, device="cpu")
+        tok_g, led_g = serve_batch_paged(params, cfg, prompts.to(DEV), scfg,
+                                         store, pcfg, opt=opt)
+        for k, v in led_c.items():
+            np.testing.assert_allclose(led_g[k], v, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{arch} {k}")
+        st_c = init_decode_state(cfg, 2, FAMILY_DECODE, opt, device="cpu")
+        st_g = init_decode_state(cfg, 2, FAMILY_DECODE, opt, device=DEV)
+        worst = 0.0
+        for pos in range(FAMILY_DECODE):
+            tok = tok_c[:, pos:pos + 1]
+            lc, st_c = decode_step(params_cpu, cfg, st_c, tok, pos, opt)
+            lg, st_g = decode_step(params, cfg, st_g, tok.to(DEV), pos, opt)
+            np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(),
+                                       rtol=1e-3, atol=1e-3,
+                                       err_msg=f"{arch} pos {pos}")
+            worst = max(worst, float((lg.cpu() - lc).abs().max()))
+        kv_rows = st_g["runs"][-1]["k"].shape[-3]
+        same = float((tok_g.cpu() == tok_c).float().mean())
+        phase("families_reference", model=f"{cfg.name} f32",
+              window_ring=opt.window_ring, kv_rows=kv_rows,
+              decode_steps=FAMILY_DECODE, ledger_equal=True,
+              logits_max_abs_diff=f"{worst:.2e}", tokens_equal_frac=same)
+
+
+def _layer_view(tree):
+    """Layer 0 of a stacked (L, ...) parameter tree."""
+    return CP.tree_map(lambda t: t[0], tree)
+
+
+def block_timing(cfg, params):
+    """One layer of the family's own block at the decode shape (B = 8,
+    one token): the MoE ffn of olmoe, a Mamba2 mixer of zamba2. Device ms
+    (CUDA graph) and eager call ms against the layer's weight bytes at
+    the card's memory rate, and the memory one call allocates beyond its
+    output (an operand copied to reach a GEMM's layout shows here)."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    h = torch.randn((SERVE_B, 1, cfg.d_model), generator=gen, device=DEV
+                    ).to(torch.bfloat16)
+    if cfg.is_moe:
+        p = _layer_view(params["runs"][0]["ffn"])
+        name = "moe_dense"
+
+        def fn():
+            return MOE.moe_dense(p, cfg, h)
+    else:
+        p = _layer_view(params["runs"][0]["mixer"])
+        st = SSM.init_mamba2_state(cfg, SERVE_B, device=DEV)
+        name = "mamba2_decode"
+
+        def fn():
+            return SSM.mamba2_decode(p, cfg, h, st)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    del out
+    return {"block": name, "block_weight_bytes": nbytes,
+            "block_bound_ms": f"{nbytes / HBM_BYTES_PER_MS:.5f}",
+            "block_device_ms": f"{device_ms(fn):.5f}",
+            "block_call_ms": f"{call_ms(fn, 20):.5f}",
+            "block_alloc_mib": f"{extra / 2**20:.1f}"}
+
+
+def serve_family_phase(arch):
+    """Full-width `arch` (bf16 weights from seed 0) through
+    serve_batch_paged at B = 8 with a store of the model's own KV
+    geometry (SERVE_STORE's pages, sets and ways): the family's serve
+    path. Checks launches of K1 and K2, every request counted, bytes
+    conserved and the tokens in range; then the step split, the model
+    part against its weight-byte bound, one layer of the family's block,
+    and K1 (on the run's last-step inputs) and K2 (the K/V pair at the
+    cell's remote pool and L = B*R) bit for bit against their plain
+    versions at the model's row width. Frees the model. Returns (launch
+    counts, K1's numbers, K2's numbers)."""
+    short, prompt_len, new = FAMILY_SERVE[arch]
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_secs = time.perf_counter() - t0
+    lv = leaves(params)
+    n_params = sum(t.numel() for t in lv.values())
+    # a decode step reads every weight once, of the embedding table only
+    # the B gathered rows
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in lv.items()
+                       if not k.startswith(".embed"))
+    del lv
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, prompt_len),
+                            generator=gen, device=DEV, dtype=torch.int32)
+    store = DS.KVStoreConfig(**dict(SERVE_STORE,
+                                    kv_heads=cfg.num_kv_heads,
+                                    head_dim=cfg.resolved_head_dim))
+    row = (store.page_tokens, store.kv_heads, store.head_dim)
+    row_bytes = math.prod(row) * 2
+    scfg = ServeConfig(max_new_tokens=new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PG.KERNEL.launches = 0
+    RF.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    tokens, led = serve_batch_paged(params, cfg, prompts, scfg, store,
+                                    SERVE_PAGED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {"paged_gather": PG.KERNEL.launches,
+              "fused_residency_step": RF.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = prompt_len + new
+    r = SERVE_PAGED.window_pages
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"{arch}: a kernel was not launched: {counts}")
+    if led["requests"] != SERVE_B * r * steps:
+        raise AssertionError(f"{arch}: requests {led['requests']} != "
+                             f"B*R*steps")
+    if abs(sum(led["module_bytes"]) - led["wire_bytes"]) > \
+            1e-5 * max(led["wire_bytes"], 1.0):
+        raise AssertionError(f"{arch}: module bytes do not sum to wire "
+                             f"bytes")
+    if tokens.shape != (SERVE_B, steps) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{arch}: tokens out of range or of the "
+                             f"wrong shape")
+    phase(f"serve_{short}", model=arch, params=n_params, batch=SERVE_B,
+          prompt=prompt_len, new=new, init_seconds=f"{init_secs:.3f}",
+          seconds=f"{secs:.3f}", steps_per_s=f"{steps / secs:.2f}",
+          tokens_per_s=f"{SERVE_B * new / secs:.2f}",
+          peak_gib=f"{peak / 2**30:.2f}", launches=counts,
+          row_bytes=row_bytes, requests=led["requests"],
+          hit_rate=f"{led['local_hits'] / led['requests']:.4f}",
+          wire_bytes=f"{led['wire_bytes']:.6g}")
+    k1_inputs, ms, state = split_phase(cfg, params, prompts, store=store,
+                                       new=new, arch=arch)
+    del state
+    bound = weight_bytes / HBM_BYTES_PER_MS
+    phase(f"{short}_model_bound", model_ms=f"{ms['model']:.3f}",
+          weight_bytes=weight_bytes, bound_ms=f"{bound:.4f}",
+          model_over_bound=f"{ms['model'] / bound:.2f}",
+          **block_timing(cfg, params))
+    t1 = k1_timing(k1_inputs, f"fused_residency_step_{short}_shape")
+    del k1_inputs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_rows = SERVE_B * SERVE_PAGED.pages_per_seq
+    pool, idx, mask = gather_case(gen, pool_rows, SERVE_B * r, row=row)
+    err2 = gather_check(pool, idx, mask)
+    t2 = gather_timing(pool, idx)
+    phase(f"paged_gather_{short}_shape", exact=True, rows=SERVE_B * r,
+          pool_rows=pool_rows, row_bytes=row_bytes, **t2)
+    del pool
+    return (counts, {"row_bytes": row_bytes, **t1},
+            {"row_bytes": row_bytes, "max_abs_err": err2, **t2})
+
+
 # the paper's fig-8 network grid (benchmarks/common.py NETWORK_GRID):
 # switch latency (ns) x network bandwidth factor
 FIG8_NETS = tuple((sw, bf) for sw in (100.0, 400.0) for bf in (2.0, 4.0, 8.0))
@@ -1826,7 +2046,9 @@ def main():
     replicated_reference_phase()
     telemetry_phase()
     cfg, params, prompts, counts = serve_phase()
-    k1_inputs, _, kcache = split_phase(cfg, params, prompts)
+    k1_inputs, _, state = split_phase(cfg, params, prompts)
+    kcache = state["runs"][0]["k"]
+    del state
     k1 = k1_phase(k1_inputs, gen, k1_err)
     del k1_inputs
     prefill_phase(cfg, params, prompts)
@@ -1848,6 +2070,17 @@ def main():
     del params                       # free the serve phases before training
     gc.collect()
     torch.cuda.empty_cache()
+    families_reference_phase()
+    for arch in FAMILY_ARCHS:
+        short = FAMILY_SERVE[arch][0]
+        fam_counts, t1, t2 = serve_family_phase(arch)
+        k1["launches_by_path"][f"serve_{short}"] = \
+            fam_counts["fused_residency_step"]
+        k2["launches_by_path"][f"serve_{short}"] = fam_counts["paged_gather"]
+        k1["max_abs_err"] = max(k1["max_abs_err"], t1.pop("max_abs_err"))
+        k2["max_abs_err"] = max(k2["max_abs_err"], t2.pop("max_abs_err"))
+        k1[f"{short}_shape"] = t1
+        k2[f"{short}_shape"] = t2
     k3q, k3d = qdq_phase(gen)
     k4c, k4d = bdi_phase(gen, kcache)
     train_reference_phase()

@@ -1,12 +1,19 @@
 """Architecture registry of the port: ``get_config(name)`` over the
-configs ported so far (qwen3-1.7b), and ``get_shape(name)``."""
+configs ported so far — the dense (qwen3-1.7b, qwen3-8b, yi-9b,
+minitron-4b), MoE (olmoe-1b-7b, qwen3-moe-30b-a3b) and Mamba2-hybrid
+(zamba2-2.7b) families — and ``get_shape(name)``."""
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_1p7b
+from repro_torch.configs import (minitron_4b, olmoe_1b_7b, qwen3_1p7b,
+                                 qwen3_8b, qwen3_moe_30b_a3b, yi_9b,
+                                 zamba2_2p7b)
 from repro_torch.configs.base import (SHAPES, SMOKE_SHAPES, ArchConfig,
                                       ShapeConfig)
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen3_1p7b,)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
+    yi_9b, qwen3_8b, minitron_4b, qwen3_1p7b, olmoe_1b_7b,
+    qwen3_moe_30b_a3b, zamba2_2p7b,
+)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -2,12 +2,14 @@
 
 `params_from_numpy` takes a model parameter tree of numpy arrays — the
 layout ``repro.models.model.init_model`` produces, after
-``jax.device_get`` — and returns the port's tree, so both packages then
-compute the same function. `state_from_numpy` / `state_to_numpy` convert
-a store state (``KVStoreState``, ``BatchedKVStoreState`` or
-``ReplicatedKVStoreState`` with its NIC bank, telemetry state included)
-field by field (by name), which is how the tests hold the port's store
-against the reference. `opt_state_from_numpy`
+``jax.device_get``, MoE experts and zamba's `shared_attn` included — and
+returns the port's tree, so both packages then compute the same
+function. `state_from_numpy` takes a decode state of
+``repro.models.model.init_decode_state`` the same way; it and
+`state_to_numpy` also convert a store state (``KVStoreState``,
+``BatchedKVStoreState`` or ``ReplicatedKVStoreState`` with its NIC bank,
+telemetry state included) field by field (by name), which is how the
+tests hold the port's store against the reference. `opt_state_from_numpy`
 / `opt_state_to_numpy` carry the AdamW state (``{"mu", "nu", "count"}``)
 and `batch_from_numpy` a training batch, so a reference state, batch and
 parameters give the port the same train step. bfloat16 arrays
@@ -83,15 +85,20 @@ def _seq_from(s, conv) -> SeqState:
 
 
 def state_from_numpy(state, device=None):
-    """A store state with numpy leaves (e.g. the reference's, after
-    `jax.device_get`) -> the port's, on the card unless `device` says
-    otherwise. The type follows the fields: `seq` makes a KVStoreState,
-    `seqs` a BatchedKVStoreState, `seqs` and `nic` a
+    """A store state or a model decode state with numpy leaves (e.g. the
+    reference's, after `jax.device_get`) -> the port's, on the card
+    unless `device` says otherwise. A decode state ({"runs": ...}: KV
+    caches, mamba states, the hybrid's (groups, per, ...) layout) keeps
+    its tree. A store state's type follows the fields: `seq` makes a
+    KVStoreState, `seqs` a BatchedKVStoreState, `seqs` and `nic` a
     ReplicatedKVStoreState; fields are matched by name."""
     device = resolve_device(device)
 
     def conv(a):
         return to_tensor(a, device)
+
+    if isinstance(state, dict):
+        return tree_map(conv, state)
 
     clock = conv(state.clock)
     fab = _fabric_from(state.fab, conv)
@@ -108,8 +115,8 @@ def state_from_numpy(state, device=None):
 
 def state_to_numpy(state) -> dict:
     """The port's store state (any of the three) as a nested dict of
-    numpy arrays, keyed by field name (bfloat16 pools widen to
-    float32)."""
+    numpy arrays, keyed by field name, or a decode state as the same tree
+    of numpy arrays (bfloat16 widens to float32)."""
     def walk(x):
         if isinstance(x, torch.Tensor):
             return to_numpy(x)
@@ -118,6 +125,8 @@ def state_to_numpy(state) -> dict:
                     if getattr(x, f) is not None}
         if isinstance(x, dict):
             return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(walk(v) for v in x)
         raise TypeError(type(x).__name__)
     return walk(state)
 

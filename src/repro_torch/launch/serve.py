@@ -1,10 +1,13 @@
 """Serving launcher of the port: batched decode with a (reduced) model.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 8 --prompt-len 32 --new-tokens 32
 
-Mirrors ``repro.launch.serve``, with the same flags plus ``--device``:
+Mirrors ``repro.launch.serve``, with the same flags plus ``--device``;
+``--arch`` takes any registered arch (dense, MoE or the zamba2 hybrid):
 random parameters from a seed (bf16 storage at full width, f32 with
 ``--reduced``), prompts from a seeded ``torch.Generator``, then
 `serve_batch`. It runs on the card unless given ``--device cpu``.
@@ -16,7 +19,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_model
 from repro_torch.runtime.serve_loop import ServeConfig, serve_batch
@@ -24,7 +27,7 @@ from repro_torch.runtime.serve_loop import ServeConfig, serve_batch
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)

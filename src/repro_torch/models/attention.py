@@ -189,22 +189,29 @@ def init_kv_cache(cfg, batch: int, max_len: int, device=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0):
+def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
+                     ring: bool = False):
     """x: (B,1,D); cache {k,v}: (B,T,K,H), written IN PLACE at `pos`.
-    Returns (y (B,1,D), cache)."""
+    Returns (y (B,1,D), cache).
+
+    ring=True (windowed archs): the cache holds only the last T tokens
+    and the write lands at pos % T. RoPE is applied at write time with
+    absolute positions and every resident entry is within the window by
+    construction, so the mask is only the warm-up's kpos <= pos."""
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, cfg, x, x, positions, positions,
                                    use_rope=True)
     t = cache["k"].shape[1]
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    write_at = pos % t if ring else pos
+    cache["k"][:, write_at] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, write_at] = v_new[:, 0].to(cache["v"].dtype)
     kx = _expand_kv(cache["k"], cfg)
     vx = _expand_kv(cache["v"], cfg)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
     s = dot(q.to(F32), kx.to(F32), "bsnh,btnh->bnst") * scale  # (B,N,1,T)
     kpos = torch.arange(t, device=x.device)
     ok = kpos <= pos
-    if window:
+    if window and not ring:
         ok &= (pos - kpos) < window
     s = s + torch.where(ok, 0.0, NEG_INF).to(F32)
     p = torch.softmax(s, dim=-1).to(x.dtype)

@@ -23,11 +23,12 @@ def normal(gen: torch.Generator, shape, *, scale=None, layers: int = 0,
            dtype=F32) -> torch.Tensor:
     """N(0, scale^2) weights (default scale 1/sqrt(shape[0])), drawn in f32
     on the generator's device and cast to `dtype`; `layers` > 0 prepends
-    a stacked (L,) axis with the per-layer scale."""
+    a stacked (L,) axis with the per-layer scale. The draw is scaled in
+    place, so a stacked leaf costs one f32 transient, not two."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     full = ((layers,) if layers else ()) + tuple(shape)
     w = torch.randn(full, generator=gen, dtype=F32, device=gen.device)
-    return (w * s).to(dtype)
+    return w.mul_(s).to(dtype)
 
 
 def zeros(shape, *, layers: int = 0, device=None) -> torch.Tensor:

@@ -1,14 +1,17 @@
-"""Model assembly of the ATTN family (dense GQA stacks): training
-forward and loss, and the decode path.
+"""Model assembly: family-dispatched decoder stacks — training forward
+and loss, and the decode path.
 
 PyTorch counterpart of ``repro.models.model``: `init_model`, `forward`,
-`loss_fn`, `init_decode_state`, `decode_step` and `prefill` for configs
-whose every block is an attention block with a dense SwiGLU MLP (qwen3,
-yi, minitron). The reference's `lax.scan` over a run of stacked layers is
-a Python loop over the run's (L,) axis; `jax.checkpoint` around the scan
-body is `torch.utils.checkpoint` around each layer. MoE, the recurrent
-and hybrid block kinds, cross attention, the frontends and zamba's shared
-attention are not ported yet and raise.
+`loss_fn`, `init_decode_state`, `decode_step` and `prefill` for the
+dense (GQA attention + SwiGLU MLP: qwen3, yi, minitron), MoE (the MLP
+swapped for the routed experts: olmoe, qwen3-moe) and hybrid (zamba2:
+Mamba2 layers with one shared attention block applied every
+`shared_attn_every` layers, tied weights, its input re-injected with the
+embedding) families. The reference's `lax.scan` over a run of stacked
+layers is a Python loop over the run's (L,) axis; `jax.checkpoint`
+around the scan body is `torch.utils.checkpoint` around each layer. The
+xLSTM block kinds, cross attention, the encoder and the frontends are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ from typing import Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.configs.base import ATTN, ArchConfig
-from repro_torch.core.compute_plane import tree_leaves
+from repro_torch.configs.base import ATTN, MAMBA2, ArchConfig
+from repro_torch.core.compute_plane import tree_leaves, tree_map
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           init_attention, init_kv_cache)
 from repro_torch.models.layers import (F32, apply_rope, dot, embed,
@@ -32,12 +37,18 @@ from repro_torch.models.layers import (F32, apply_rope, dot, embed,
 @dataclass(frozen=True)
 class ModelOptions:
     """Run-time (non-architectural) choices; of the reference's, the port
-    reads the attention tiling, the rematerialisation policy and the
-    sliding-window override."""
+    reads the MoE path, the attention tiling, the rematerialisation
+    policy, the SSD chunk, the sliding-window override and the ring KV
+    cache."""
+    moe_impl: str = "dense"            # "dense" | "ep" (raises)
     triangular_flash: bool = True      # skip fully-masked causal KV blocks
     flash_threshold: int = 2048
     remat: str = "dots"                # "none" | "full" | "dots"
+    ssd_chunk: int = 256
     window_override: Optional[int] = None  # force sliding window
+    # windowed archs keep only the last `window` tokens of KV (cache rows
+    # = window, writes at pos % window)
+    window_ring: bool = False
 
 
 def _window(cfg, opt):
@@ -57,11 +68,38 @@ def _plan(cfg: ArchConfig):
 
 
 def _check_ported(cfg: ArchConfig):
-    if (cfg.is_moe or cfg.shared_attn_every or cfg.cross_attention
-            or cfg.encoder_layers or cfg.frontend
-            or any(kind != ATTN for kind in cfg.blocks())):
+    if (cfg.cross_attention or cfg.encoder_layers or cfg.frontend
+            or any(kind not in (ATTN, MAMBA2) for kind in cfg.blocks())):
         raise NotImplementedError(
-            f"{cfg.name}: only dense ATTN-family stacks are ported")
+            f"{cfg.name}: the xLSTM blocks, cross attention, the encoder "
+            f"and the frontends are not ported yet")
+
+
+# ==========================================================================
+# init
+# ==========================================================================
+def _init_block(gen, cfg, kind, count: int, dtype):
+    """Parameters of `count` stacked blocks of `kind` (count 0: one
+    unstacked block)."""
+    dev = gen.device
+    if kind == ATTN:
+        if cfg.is_moe:
+            ffn = moe_mod.init_moe(gen, cfg, layers=count, dtype=dtype)
+        else:
+            ffn = init_mlp(gen, cfg.d_model, cfg.d_ff, layers=count,
+                           dtype=dtype)
+        return {"norm1": init_rms_norm(cfg.d_model, layers=count,
+                                       device=dev),
+                "attn": init_attention(gen, cfg, layers=count, dtype=dtype),
+                "norm2": init_rms_norm(cfg.d_model, layers=count,
+                                       device=dev),
+                "ffn": ffn}
+    if kind == MAMBA2:
+        return {"norm1": init_rms_norm(cfg.d_model, layers=count,
+                                       device=dev),
+                "mixer": ssm_mod.init_mamba2(gen, cfg, layers=count,
+                                             dtype=dtype)}
+    raise NotImplementedError(f"block kind {kind!r} is not ported")
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, dtype=F32):
@@ -73,47 +111,33 @@ def init_model(cfg: ArchConfig, gen: torch.Generator, dtype=F32):
     dev = gen.device
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       dtype)}
-    runs = []
-    for kind, count in _plan(cfg):
-        runs.append({
-            "norm1": init_rms_norm(cfg.d_model, layers=count, device=dev),
-            "attn": init_attention(gen, cfg, layers=count, dtype=dtype),
-            "norm2": init_rms_norm(cfg.d_model, layers=count, device=dev),
-            "ffn": init_mlp(gen, cfg.d_model, cfg.d_ff, layers=count,
-                            dtype=dtype),
-        })
-    params["runs"] = tuple(runs)
+    params["runs"] = tuple(_init_block(gen, cfg, kind, count, dtype)
+                           for kind, count in _plan(cfg))
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _init_block(gen, cfg, ATTN, 0, dtype)
     params["final_norm"] = init_rms_norm(cfg.d_model, device=dev)
     params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                        dtype)
     return params
 
 
-def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                      opt: ModelOptions, device=None):
-    """Per-run stacked (L, B, T, K, H) KV caches, zeroed."""
-    _check_ported(cfg)
-    runs = []
-    for _, count in _plan(cfg):
-        one = init_kv_cache(cfg, batch, max_len, device=device)
-        runs.append({k: v.expand((count,) + v.shape).contiguous()
-                     for k, v in one.items()})
-    return {"runs": tuple(runs)}
-
-
 # ==========================================================================
-# forward blocks (training)
+# forward blocks (training / prefill)
 # ==========================================================================
 def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
                  positions=None, collect_kv=False):
-    """Returns (x, aux, kv_or_None): with `collect_kv`, the block's K and
-    V for a decode cache, recomputed from the normed input (K through
+    """Returns (x, aux, kv_or_None): with `collect_kv`, an ATTN block's K
+    and V for a decode cache, recomputed from the normed input (K through
     k_norm, then RoPE at `positions`), as the reference does."""
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
     if enc is not None:
         raise NotImplementedError("cross attention is not ported")
     aux = torch.zeros((), dtype=F32, device=x.device)
+    if kind == MAMBA2:
+        h = rms_norm(x, p["norm1"]["scale"])
+        return x + ssm_mod.mamba2(p["mixer"], cfg, h, chunk=opt.ssd_chunk), \
+            aux, None
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     h = rms_norm(x, p["norm1"]["scale"])
     y = attention(p["attn"], cfg, h, positions=positions, causal=causal,
                   window=window, flash_threshold=opt.flash_threshold,
@@ -131,7 +155,11 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
         kv = {"k": k.to(dt), "v": v.to(dt)}
     x = x + y
     h = rms_norm(x, p["norm2"]["scale"])
-    return x + mlp(p["ffn"], h), aux, kv
+    if cfg.is_moe:
+        y, aux = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
+    else:
+        y = mlp(p["ffn"], h)
+    return x + y, aux, kv
 
 
 _MATMULS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
@@ -196,6 +224,50 @@ def _run_scan(run_params, kind, x, cfg, opt, *, causal=True, window=0,
     return x, aux, {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
 
 
+def _zamba_groups(params, cfg):
+    """View the stacked (L, ...) mamba params as (groups, per, ...)."""
+    per = cfg.shared_attn_every
+    groups = cfg.num_layers // per
+    return tree_map(lambda t: t.reshape((groups, per) + t.shape[1:]),
+                    params), groups, per
+
+
+def _forward_stack(params, cfg, x, opt, *, positions=None,
+                   collect_kv=False):
+    """Run the decoder stack. Returns (x, aux, caches: one per run of the
+    plan, each None or {"k", "v"} stacked over the run's layers). The
+    hybrid collects no caches: its prefill leaves the state zero, as the
+    reference's does."""
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    window = _window(cfg, opt)
+    if cfg.shared_attn_every:
+        # zamba2: groups of `per` mamba layers + the tied shared block,
+        # whose input re-injects the embedding output
+        gp, groups, per = _zamba_groups(params["runs"][0], cfg)
+        x0 = x
+
+        def shared_block(sa_in, shared_p):
+            return _apply_block(ATTN, shared_p, cfg, sa_in, opt,
+                                causal=True, window=window,
+                                positions=positions)
+
+        shared_fn = _remat(shared_block, opt)
+        for g_params in _unstack(gp, groups):
+            x, a, _ = _run_scan(g_params, MAMBA2, x, cfg, opt,
+                                positions=positions)
+            x, a2, _ = shared_fn(x + x0, params["shared_attn"])
+            aux = aux + a + a2
+        return x, aux, [None]
+    caches = []
+    for (kind, _), run_params in zip(_plan(cfg), params["runs"]):
+        x, a, kvs = _run_scan(run_params, kind, x, cfg, opt, causal=True,
+                              window=window, positions=positions,
+                              collect_kv=collect_kv and kind == ATTN)
+        aux = aux + a
+        caches.append(kvs)
+    return x, aux, caches
+
+
 def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
     """Training forward. batch: {tokens (B,S) int} -> (logits (B,S,Vp)
     f32, aux)."""
@@ -203,12 +275,7 @@ def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
     dtype = getattr(torch, cfg.dtype)
     x = embed(params["embed"], batch["tokens"].long(), dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    window = _window(cfg, opt)
-    aux = torch.zeros((), dtype=F32, device=x.device)
-    for (kind, _), run_params in zip(_plan(cfg), params["runs"]):
-        x, a, _ = _run_scan(run_params, kind, x, cfg, opt, causal=True,
-                            window=window, positions=positions)
-        aux = aux + a
+    x, aux, _ = _forward_stack(params, cfg, x, opt, positions=positions)
     x = rms_norm(x, params["final_norm"]["scale"])
     return unembed(params["unembed"], x), aux
 
@@ -225,37 +292,97 @@ def loss_fn(params, cfg: ArchConfig, batch, opt: ModelOptions):
     return loss, {"xent": xent, "aux": aux}
 
 
-def _layer(tree, i: int):
-    """Layer i's view of a stacked (L, ...) parameter or state tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+# ==========================================================================
+# decode state + step
+# ==========================================================================
+def _kv_rows(cfg, opt, max_len: int) -> int:
+    """Cache rows of an attention layer: `max_len`, or at most the window
+    with the ring cache."""
+    window = _window(cfg, opt)
+    return min(max_len, window) if opt.window_ring and window else max_len
+
+
+def _stacked_kv(cfg, batch: int, rows: int, count: int, device):
+    one = init_kv_cache(cfg, batch, rows, device=device)
+    return {k: v.expand((count,) + v.shape).contiguous()
+            for k, v in one.items()}
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      opt: ModelOptions, device=None):
+    """Zeroed decode state {"runs": (...)}: per run of the plan, the
+    stacked (L, B, T, K, H) KV caches of an ATTN run or the (L, ...)
+    mamba states of a MAMBA2 run. The hybrid has two entries: the mamba
+    states as (groups, per, B, ...) and the shared block's KV caches as
+    (groups, B, T, K, H)."""
+    _check_ported(cfg)
+    rows = _kv_rows(cfg, opt, max_len)
+    if cfg.shared_attn_every:
+        groups = cfg.num_layers // cfg.shared_attn_every
+        mamba = ssm_mod.init_mamba2_state(
+            cfg, batch, layers=(groups, cfg.shared_attn_every),
+            device=device)
+        return {"runs": (mamba, _stacked_kv(cfg, batch, rows, groups,
+                                            device))}
+    return {"runs": tuple(
+        _stacked_kv(cfg, batch, rows, count, device) if kind == ATTN
+        else ssm_mod.init_mamba2_state(cfg, batch, layers=(count,),
+                                       device=device)
+        for kind, count in _plan(cfg))}
+
+
+def _layer(tree, *i):
+    """The view at index `i` of the leading axes of a stacked parameter
+    or state tree."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def _decode_block(kind, p, cfg, x, state, pos, opt, window):
+    """One block on one new token; `state` (the layer's KV cache or mamba
+    state) is written in place. Returns (x, state)."""
+    if kind == MAMBA2:
+        h = rms_norm(x, p["norm1"]["scale"])
+        y, state = ssm_mod.mamba2_decode(p["mixer"], cfg, h, state)
+        return x + y, state
     if kind != ATTN:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     h = rms_norm(x, p["norm1"]["scale"])
-    y, _ = decode_attention(p["attn"], cfg, h, state, pos, window=window)
+    y, _ = decode_attention(p["attn"], cfg, h, state, pos, window=window,
+                            ring=opt.window_ring and window > 0)
     x = x + y
     h = rms_norm(x, p["norm2"]["scale"])
-    return x + mlp(p["ffn"], h), state
+    if cfg.is_moe:
+        y, _ = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
+    else:
+        y = mlp(p["ffn"], h)
+    return x + y, state
 
 
 def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
                 opt: ModelOptions):
     """One decode step. tokens: (B,1) int; pos: the Python int position.
-    The KV caches in `state` are written in place.
+    The KV caches and mamba states in `state` are written in place.
 
     Returns (logits (B, vocab_padded) f32, state)."""
     dtype = getattr(torch, cfg.dtype)
     x = embed(params["embed"], tokens, dtype)
     window = _window(cfg, opt)
-    for (kind, count), run_params, run_state in zip(
-            _plan(cfg), params["runs"], state["runs"]):
-        for i in range(count):
-            x, _ = _decode_block(kind, _layer(run_params, i), cfg, x,
-                                 _layer(run_state, i), pos, opt, window)
+    if cfg.shared_attn_every:
+        gp, groups, per = _zamba_groups(params["runs"][0], cfg)
+        m_state, sa_state = state["runs"]
+        x0 = x
+        for g in range(groups):
+            for i in range(per):
+                x, _ = _decode_block(MAMBA2, _layer(gp, g, i), cfg, x,
+                                     _layer(m_state, g, i), pos, opt, window)
+            x, _ = _decode_block(ATTN, params["shared_attn"], cfg, x + x0,
+                                 _layer(sa_state, g), pos, opt, window)
+    else:
+        for (kind, count), run_params, run_state in zip(
+                _plan(cfg), params["runs"], state["runs"]):
+            for i in range(count):
+                x, _ = _decode_block(kind, _layer(run_params, i), cfg, x,
+                                     _layer(run_state, i), pos, opt, window)
     x = rms_norm(x, params["final_norm"]["scale"])
     logits = unembed(params["unembed"], x)[:, 0, :]
     return logits, state
@@ -264,23 +391,23 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
 def prefill(params, cfg: ArchConfig, batch, max_len: int,
             opt: ModelOptions):
     """One-pass prefill: the forward over `batch["tokens"]` (B, S) and a
-    decode-ready state whose KV caches (max_len positions) hold the
-    prompt's K and V from row 0. Returns (logits (B, S, vocab_padded)
-    f32, state)."""
+    decode-ready state whose ATTN KV caches (max_len positions) hold the
+    prompt's K and V from row 0. As in the reference, the hybrid's state
+    (mamba states and the shared block's caches) stays zero: the serve
+    loops prefill token by token through `decode_step`. Returns (logits
+    (B, S, vocab_padded) f32, state)."""
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed(params["embed"], tokens.long(), dtype)
     positions = torch.arange(s, device=x.device)
-    window = _window(cfg, opt)
+    x, _, caches = _forward_stack(params, cfg, x, opt, positions=positions,
+                                  collect_kv=True)
     state = init_decode_state(cfg, b, max_len, opt, device=x.device)
-    for (kind, _), run_params, run_state in zip(
-            _plan(cfg), params["runs"], state["runs"]):
-        x, _, kv = _run_scan(run_params, kind, x, cfg, opt, causal=True,
-                             window=window, positions=positions,
-                             collect_kv=True)
-        run_state["k"][:, :, :s] = kv["k"]
-        run_state["v"][:, :, :s] = kv["v"]
+    for run_state, kv in zip(state["runs"], caches):
+        if kv is not None:
+            run_state["k"][:, :, :s] = kv["k"]
+            run_state["v"][:, :, :s] = kv["v"]
     x = rms_norm(x, params["final_norm"]["scale"])
     return unembed(params["unembed"], x), state

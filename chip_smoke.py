@@ -11,24 +11,30 @@ qwen3-1.7b card against CPU (paged, replicated, and at telemetry level
 "trace" with a link-health monitor), full-width qwen3-1.7b through
 `serve_batch_paged` and through `serve_replicated` (2 replicas x 8
 tenants) with the DaeMon KV store in the loop, and one-pass `prefill`
-against the token-by-token decode. The MoE and Mamba2-hybrid families
-follow: reduced olmoe-1b-7b and zamba2-2.7b (the latter on an 8-token
-ring KV cache) card against CPU (`[families_reference]`), then each at
-full width through `serve_batch_paged` (`[serve_olmoe]`,
-`[serve_zamba2]`: bf16, B = 8, a store of the model's own KV geometry,
-so K1 and K2 run at 64 KB and 80 KB page rows and are held bit for bit
-there). Then it trains: the card against the CPU on reduced qwen3-1.7b,
-and four steps at full width with the int8-compressed pod-gradient sync
-on the block-int8 kernels. Last it runs the request-level simulator
-(`repro_torch.sim`): the seed golden (pr and dr, 9 schemes x 3 nets, r =
-6000) held to tests/golden/seed_movement_golden.json (`[sim_golden]`),
-every lattice axis (schemes x link-profile nets x active compute units x
-policies, telemetry on) on the card against the CPU with two-endpoint
-byte conservation (`[sim_axes]`), and the paper's fig-8 lattice at r =
-6000 with its first 200 requests under sync-debug mode "error" and 50
-under torch.profiler (`[sim_fig8]`); the simulator reaches no hand
-kernel, and each phase checks that none was launched. It checks every
-result and imports nothing of JAX or of the reference package.
+against the token-by-token decode. The other model families follow:
+reduced olmoe-1b-7b, zamba2-2.7b (on an 8-token ring KV cache),
+xlstm-125m, whisper-base and internvl2-26b card against CPU, the two
+frontend archs also through a one-pass prefill with their stub's input
+(`[families_reference]`); then each of those, and qwen3-moe-30b-a3b last
+(61 GB of weights), at full width through `serve_batch_paged`
+(`[serve_olmoe]`, `[serve_zamba2]`, `[serve_xlstm]`, `[serve_whisper]`,
+`[serve_internvl2]`, `[serve_qwen3moe]`: bf16, B = 8, a store of the
+model's own KV geometry, so K1 and K2 run at 16, 24, 32, 64 and 80 KB
+page rows and are held bit for bit there), with a full-width one-pass
+prefill of whisper's 1500 audio frames and internvl2's 256 patches
+(`[prefill_frontends]`). Then it trains: the card against the CPU on
+reduced qwen3-1.7b, and four steps at full width with the
+int8-compressed pod-gradient sync on the block-int8 kernels. Last it
+runs the request-level simulator (`repro_torch.sim`): the seed golden
+(pr and dr, 9 schemes x 3 nets, r = 6000) held to
+tests/golden/seed_movement_golden.json (`[sim_golden]`), every lattice
+axis (schemes x link-profile nets x active compute units x policies,
+telemetry on) on the card against the CPU with two-endpoint byte
+conservation (`[sim_axes]`), and the paper's fig-8 lattice at r = 6000
+with its first 200 requests under sync-debug mode "error" and 50 under
+torch.profiler (`[sim_fig8]`); the simulator reaches no hand kernel, and
+each phase checks that none was launched. It checks every result and
+imports nothing of JAX or of the reference package.
 
 The store's kernels are also timed at the store benchmark's shapes (the
 paged gather at L = 256 rows, with L2 warm and cold; the residency
@@ -91,6 +97,9 @@ from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.models import xlstm as XL  # noqa: E402
+from repro_torch.models.attention import decode_cross_attention  # noqa
+from repro_torch.models.layers import mlp, padded_vocab  # noqa: E402
 from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
                                       init_decode_state, init_model, prefill)
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
@@ -1565,27 +1574,41 @@ def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
 # ------------------------------------------------------ phase 9: simulator
 GOLDEN = ROOT / "tests" / "golden" / "seed_movement_golden.json"
 # ------------------------------------------------------- model families
-FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b")
+FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b", "xlstm-125m", "whisper-base",
+                "internvl2-26b", "qwen3-moe-30b-a3b")
 # each full-width family cell: (short name, prompt tokens, new tokens);
-# zamba2's 54 mamba layers make its step the longer, so it runs 16 + 16
+# zamba2's 54 mamba layers, internvl2's 40 GB and qwen3-moe's 61 GB of
+# weights make their steps the longer, so they run 16 + 16. qwen3-moe
+# comes last: it fits the card only once the others are freed.
 FAMILY_SERVE = {"olmoe-1b-7b": ("olmoe", 32, 32),
-                "zamba2-2.7b": ("zamba2", 16, 16)}
+                "zamba2-2.7b": ("zamba2", 16, 16),
+                "xlstm-125m": ("xlstm", 32, 32),
+                "whisper-base": ("whisper", 32, 32),
+                "internvl2-26b": ("internvl2", 16, 16),
+                "qwen3-moe-30b-a3b": ("qwen3moe", 16, 16)}
+# the reduced archs held card against CPU (qwen3-moe's reduced form is
+# olmoe's code path)
+FAMILY_REFERENCE = FAMILY_ARCHS[:5]
 FAMILY_WINDOW = 8       # the reduced hybrid's ring window: its runs wrap it
 FAMILY_DECODE = 16      # decode steps compared card against CPU
+FRONTEND_PROMPT = 32    # text tokens of the full-width frontend prefill
 
 
 def families_reference_phase():
-    """The card against the CPU on reduced olmoe-1b-7b and zamba2-2.7b
-    (f32; zamba2 with an 8-token window on the ring cache, so the 16-token
-    serve and decode wrap it): serve_batch_paged's ledger through the
-    kernels equals the plain versions' on the CPU within rtol 1e-5, atol
-    1e-6, and the decode's logits agree within 1e-3, as in
-    [reference]."""
+    """The card against the CPU on reduced olmoe-1b-7b, zamba2-2.7b,
+    xlstm-125m, whisper-base and internvl2-26b (f32; zamba2 with an
+    8-token window on the ring cache, so the 16-token serve and decode
+    wrap it): serve_batch_paged's ledger through the kernels equals the
+    plain versions' on the CPU within rtol 1e-5, atol 1e-6, its greedy
+    tokens are equal, and the decode's logits agree within 1e-3, as in
+    [reference]. For the two frontend archs a one-pass prefill with the
+    stub's input (whisper's encoder, internvl2's prepended patches)
+    agrees within 1e-3 too."""
     store = DS.KVStoreConfig(num_local_pages=4, page_tokens=2, kv_heads=2,
                              head_dim=16, page_budget_per_step=2)
     pcfg = PagedServeConfig(window_pages=2, pages_per_seq=8)
     scfg = ServeConfig(max_new_tokens=FAMILY_DECODE - 6)
-    for arch in FAMILY_ARCHS:
+    for arch in FAMILY_REFERENCE:
         cfg = get_config(arch).reduced()
         opt = ModelOptions(remat="none")
         if cfg.shared_attn_every:
@@ -1613,12 +1636,35 @@ def families_reference_phase():
                                        rtol=1e-3, atol=1e-3,
                                        err_msg=f"{arch} pos {pos}")
             worst = max(worst, float((lg.cpu() - lc).abs().max()))
-        kv_rows = st_g["runs"][-1]["k"].shape[-3]
+        kv_rows = next((r["k"].shape[-3] for r in st_g["runs"]
+                        if "k" in r), 0)
         same = float((tok_g.cpu() == tok_c).float().mean())
+        if same != 1.0:
+            raise AssertionError(f"{arch}: greedy tokens differ")
+        extra = {}
+        if cfg.frontend:
+            extra["prefill_logits_max_abs_diff"] = \
+                f"{frontend_reference(cfg, params_cpu, params, opt):.2e}"
         phase("families_reference", model=f"{cfg.name} f32",
               window_ring=opt.window_ring, kv_rows=kv_rows,
               decode_steps=FAMILY_DECODE, ledger_equal=True,
-              logits_max_abs_diff=f"{worst:.2e}", tokens_equal_frac=same)
+              logits_max_abs_diff=f"{worst:.2e}", tokens_equal_frac=same,
+              **extra)
+
+
+def frontend_reference(cfg, params_cpu, params, opt):
+    """One-pass prefill of 6 tokens with the stub's frontend input from
+    the data pipeline, card against CPU: logits within 1e-3. Returns the
+    largest difference."""
+    batch = synthetic_batch(cfg, ShapeConfig("fr", 6, 2, "prefill"),
+                            DataConfig(), 0, device="cpu")
+    batch = {"tokens": batch["tokens"], "frontend": batch["frontend"]}
+    max_len = 6 + cfg.frontend_tokens + 4
+    lc, _ = prefill(params_cpu, cfg, batch, max_len, opt)
+    lg, _ = prefill(params, cfg, _to(batch, DEV), max_len, opt)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-3,
+                               atol=1e-3, err_msg=f"{cfg.name} prefill")
+    return float((lg.cpu() - lc).abs().max())
 
 
 def _layer_view(tree):
@@ -1628,27 +1674,58 @@ def _layer_view(tree):
 
 def block_timing(cfg, params):
     """One layer of the family's own block at the decode shape (B = 8,
-    one token): the MoE ffn of olmoe, a Mamba2 mixer of zamba2. Device ms
+    one token): the MoE ffn of olmoe and qwen3-moe, a Mamba2 mixer of
+    zamba2, an mLSTM mixer of xlstm, the cross attention of whisper over
+    its encoder_seq-row cache, the dense MLP of internvl2. Device ms
     (CUDA graph) and eager call ms against the layer's weight bytes at
-    the card's memory rate, and the memory one call allocates beyond its
-    output (an operand copied to reach a GEMM's layout shows here)."""
+    the card's memory rate (for the mLSTM and the cross attention, the
+    state or cache it reads, `block_state_bytes`, is in the bound too),
+    and the memory one call allocates beyond its output (an operand
+    copied to reach a GEMM's layout shows here)."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     h = torch.randn((SERVE_B, 1, cfg.d_model), generator=gen, device=DEV
                     ).to(torch.bfloat16)
+    st = None
+    block = params["runs"][0]
     if cfg.is_moe:
-        p = _layer_view(params["runs"][0]["ffn"])
+        p = _layer_view(block["ffn"])
         name = "moe_dense"
 
         def fn():
             return MOE.moe_dense(p, cfg, h)
-    else:
-        p = _layer_view(params["runs"][0]["mixer"])
-        st = SSM.init_mamba2_state(cfg, SERVE_B, device=DEV)
+    elif cfg.shared_attn_every:
+        p = _layer_view(block["mixer"])
+        state = SSM.init_mamba2_state(cfg, SERVE_B, device=DEV)
         name = "mamba2_decode"
 
         def fn():
-            return SSM.mamba2_decode(p, cfg, h, st)
+            return SSM.mamba2_decode(p, cfg, h, state)
+    elif cfg.family == "ssm":
+        p = _layer_view(block["mixer"])
+        st = XL.init_mlstm_state(cfg, SERVE_B, device=DEV)
+        name = "mlstm_decode"
+
+        def fn():
+            return XL.mlstm_decode(p, cfg, h, st)
+    elif cfg.cross_attention:
+        p = _layer_view(block["xattn"])
+        st = init_decode_state(cfg, SERVE_B, 1, ModelOptions(), device=DEV)
+        st = {k: st["runs"][0][k][0] for k in ("xk", "xv")}
+        name = "decode_cross_attention"
+
+        def fn():
+            return decode_cross_attention(p, cfg, h,
+                                          {"k": st["xk"], "v": st["xv"]})
+    else:
+        p = _layer_view(block["ffn"])
+        name = "mlp"
+
+        def fn():
+            return mlp(p, h)
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+    state_bytes = {} if st is None else {"block_state_bytes": sum(
+        t.numel() * t.element_size() for t in st.values())}
+    bound_bytes = nbytes + state_bytes.get("block_state_bytes", 0)
     fn()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1657,8 +1734,8 @@ def block_timing(cfg, params):
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
     del out
-    return {"block": name, "block_weight_bytes": nbytes,
-            "block_bound_ms": f"{nbytes / HBM_BYTES_PER_MS:.5f}",
+    return {"block": name, "block_weight_bytes": nbytes, **state_bytes,
+            "block_bound_ms": f"{bound_bytes / HBM_BYTES_PER_MS:.5f}",
             "block_device_ms": f"{device_ms(fn):.5f}",
             "block_call_ms": f"{call_ms(fn, 20):.5f}",
             "block_alloc_mib": f"{extra / 2**20:.1f}"}
@@ -1673,8 +1750,9 @@ def serve_family_phase(arch):
     part against its weight-byte bound, one layer of the family's block,
     and K1 (on the run's last-step inputs) and K2 (the K/V pair at the
     cell's remote pool and L = B*R) bit for bit against their plain
-    versions at the model's row width. Frees the model. Returns (launch
-    counts, K1's numbers, K2's numbers)."""
+    versions at the model's row width; for a frontend arch, the one-pass
+    prefill with its stub's input (`prefill_frontends_phase`). Frees the
+    model. Returns (launch counts, K1's numbers, K2's numbers)."""
     short, prompt_len, new = FAMILY_SERVE[arch]
     cfg = get_config(arch)
     gc.collect()
@@ -1687,9 +1765,9 @@ def serve_family_phase(arch):
     lv = leaves(params)
     n_params = sum(t.numel() for t in lv.values())
     # a decode step reads every weight once, of the embedding table only
-    # the B gathered rows
+    # the B gathered rows, and no encoder weight
     weight_bytes = sum(t.numel() * t.element_size() for k, t in lv.items()
-                       if not k.startswith(".embed"))
+                       if not k.startswith((".embed", ".encoder")))
     del lv
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, prompt_len),
                             generator=gen, device=DEV, dtype=torch.int32)
@@ -1743,7 +1821,10 @@ def serve_family_phase(arch):
           model_over_bound=f"{ms['model'] / bound:.2f}",
           **block_timing(cfg, params))
     t1 = k1_timing(k1_inputs, f"fused_residency_step_{short}_shape")
-    del k1_inputs, params
+    del k1_inputs
+    if cfg.frontend:
+        prefill_frontends_phase(cfg, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     pool_rows = SERVE_B * SERVE_PAGED.pages_per_seq
@@ -1755,6 +1836,47 @@ def serve_family_phase(arch):
     del pool
     return (counts, {"row_bytes": row_bytes, **t1},
             {"row_bytes": row_bytes, "max_abs_err": err2, **t2})
+
+
+def prefill_frontends_phase(cfg, params):
+    """Full-width one-pass prefill at B = 8 of FRONTEND_PROMPT text
+    tokens with the stub's input from the data pipeline: whisper-base
+    encodes its 1500 frames (full attention over them, on the direct
+    path), internvl2-26b prepends its 256 patch embeddings. Checks the
+    logits are finite and of shape (B, F + S or S, vocab), the KV caches
+    written for every input position and no further, whisper's cross
+    cache left zero (as in the reference)."""
+    opt = ModelOptions(remat="none")
+    batch = synthetic_batch(cfg, ShapeConfig("pf", FRONTEND_PROMPT, SERVE_B,
+                                             "prefill"), DataConfig(), 0)
+    batch = {"tokens": batch["tokens"], "frontend": batch["frontend"]}
+    t = FRONTEND_PROMPT + cfg.frontend_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, state = prefill(params, cfg, batch, t + SERVE_NEW, opt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kv = state["runs"][0]
+    if tuple(logits.shape) != (SERVE_B, t, padded_vocab(cfg.vocab_size)) \
+            or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits not finite or "
+                             f"of shape {tuple(logits.shape)}")
+    if not bool(kv["k"][:, :, t - 1].any()) or bool(kv["k"][:, :, t:].any()):
+        raise AssertionError(f"{cfg.name}: prefill caches not written at "
+                             f"exactly {t} positions")
+    if cfg.cross_attention and (kv["xk"].any() or kv["xv"].any()):
+        raise AssertionError(f"{cfg.name}: the cross cache was written")
+    phase("prefill_frontends", model=cfg.name, batch=SERVE_B,
+          frontend=cfg.frontend, frontend_rows=batch["frontend"].shape[1],
+          text_tokens=FRONTEND_PROMPT, positions=t, seconds=f"{secs:.4f}",
+          peak_gib=f"{peak / 2**30:.2f}", logits_finite=True,
+          logits_abs_max=f"{float(logits.abs().max()):.4g}")
 
 
 # the paper's fig-8 network grid (benchmarks/common.py NETWORK_GRID):

@@ -1,18 +1,20 @@
 """Architecture registry of the port: ``get_config(name)`` over the
-configs ported so far — the dense (qwen3-1.7b, qwen3-8b, yi-9b,
-minitron-4b), MoE (olmoe-1b-7b, qwen3-moe-30b-a3b) and Mamba2-hybrid
-(zamba2-2.7b) families — and ``get_shape(name)``."""
+reference's ten configs — dense (qwen3-1.7b, qwen3-8b, yi-9b,
+minitron-4b), MoE (olmoe-1b-7b, qwen3-moe-30b-a3b), the Mamba2 hybrid
+(zamba2-2.7b), xLSTM (xlstm-125m), audio encoder-decoder (whisper-base)
+and vision-language (internvl2-26b) — and ``get_shape(name)``."""
 from __future__ import annotations
 
-from repro_torch.configs import (minitron_4b, olmoe_1b_7b, qwen3_1p7b,
-                                 qwen3_8b, qwen3_moe_30b_a3b, yi_9b,
+from repro_torch.configs import (internvl2_26b, minitron_4b, olmoe_1b_7b,
+                                 qwen3_1p7b, qwen3_8b, qwen3_moe_30b_a3b,
+                                 whisper_base, xlstm_125m, yi_9b,
                                  zamba2_2p7b)
 from repro_torch.configs.base import (SHAPES, SMOKE_SHAPES, ArchConfig,
                                       ShapeConfig)
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
     yi_9b, qwen3_8b, minitron_4b, qwen3_1p7b, olmoe_1b_7b,
-    qwen3_moe_30b_a3b, zamba2_2p7b,
+    qwen3_moe_30b_a3b, whisper_base, xlstm_125m, zamba2_2p7b, internvl2_26b,
 )}
 
 
@@ -20,7 +22,7 @@ def get_config(name: str) -> ArchConfig:
     if name.endswith("-reduced"):
         return get_config(name[: -len("-reduced")]).reduced()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

@@ -2,16 +2,19 @@
 
 `params_from_numpy` takes a model parameter tree of numpy arrays — the
 layout ``repro.models.model.init_model`` produces, after
-``jax.device_get``, MoE experts and zamba's `shared_attn` included — and
-returns the port's tree, so both packages then compute the same
+``jax.device_get``, MoE experts, zamba's `shared_attn`, the xLSTM
+mixers, whisper's encoder and cross attention included — and returns
+the port's tree, so both packages then compute the same
 function. `state_from_numpy` takes a decode state of
-``repro.models.model.init_decode_state`` the same way; it and
+``repro.models.model.init_decode_state`` the same way (KV caches with
+whisper's cross cache, mamba and xLSTM states); it and
 `state_to_numpy` also convert a store state (``KVStoreState``,
 ``BatchedKVStoreState`` or ``ReplicatedKVStoreState`` with its NIC bank,
 telemetry state included) field by field (by name), which is how the
 tests hold the port's store against the reference. `opt_state_from_numpy`
 / `opt_state_to_numpy` carry the AdamW state (``{"mu", "nu", "count"}``)
-and `batch_from_numpy` a training batch, so a reference state, batch and
+and `batch_from_numpy` a training batch (the stubs' `frontend` input
+included), so a reference state, batch and
 parameters give the port the same train step. bfloat16 arrays
 (``ml_dtypes``) are carried bit for bit.
 """
@@ -88,10 +91,11 @@ def state_from_numpy(state, device=None):
     """A store state or a model decode state with numpy leaves (e.g. the
     reference's, after `jax.device_get`) -> the port's, on the card
     unless `device` says otherwise. A decode state ({"runs": ...}: KV
-    caches, mamba states, the hybrid's (groups, per, ...) layout) keeps
-    its tree. A store state's type follows the fields: `seq` makes a
-    KVStoreState, `seqs` a BatchedKVStoreState, `seqs` and `nic` a
-    ReplicatedKVStoreState; fields are matched by name."""
+    caches with whisper's xk/xv, mamba and xLSTM states, the hybrid's
+    (groups, per, ...) layout) keeps its tree. A store state's type
+    follows the fields: `seq` makes a KVStoreState, `seqs` a
+    BatchedKVStoreState, `seqs` and `nic` a ReplicatedKVStoreState;
+    fields are matched by name."""
     device = resolve_device(device)
 
     def conv(a):

@@ -3,13 +3,14 @@
 PyTorch counterpart of ``repro.data.pipeline``: the same Zipf unigram
 over the vocabulary, the same document structure (BOS, token 1, at a
 per-row offset every `doc_len` positions) and the same ``{tokens,
-labels, mask}`` layout (the frontend stubs' inputs wait for the
-frontend models). Each batch is drawn from a ``torch.Generator``
-seeded from ``(seed, step)``, so a batch is reproducible from its step
-alone (a resumed job re-reads the same stream) and is generated on the
-device it is used on. The numbers differ from ``jax.random``'s; tests
-that compare the two packages feed the reference's batches through
-numpy.
+labels, mask}`` layout, plus the stubbed frontends' ``frontend`` input
+(f32 N(0, 0.02^2) embeddings: ``vision_stub`` patches (B, F, D),
+``audio_stub`` frames (B, T_enc, D)). Each batch is drawn from a
+``torch.Generator`` seeded from ``(seed, step)``, so a batch is
+reproducible from its step alone (a resumed job re-reads the same
+stream) and is generated on the device it is used on. The numbers differ
+from ``jax.random``'s; tests that compare the two packages feed the
+reference's batches through numpy.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ def _generator(seed: int, step: int, device) -> torch.Generator:
 
 def synthetic_batch(cfg: ArchConfig, shape: ShapeConfig, dcfg: DataConfig,
                     step: int, device=None):
-    """One global batch {tokens (B,S) int32, labels, mask (B,S) f32} on
-    `device` (the card unless told otherwise)."""
+    """One global batch {tokens (B,S) int32, labels, mask (B,S) f32, and
+    for a stubbed frontend `frontend` (B, F or T_enc, D) f32} on `device`
+    (the card unless told otherwise)."""
     device = resolve_device(device)
     gen = _generator(dcfg.seed, step, device)
     b, s = shape.global_batch, shape.seq_len
@@ -56,8 +58,15 @@ def synthetic_batch(cfg: ArchConfig, shape: ShapeConfig, dcfg: DataConfig,
     pos = torch.arange(s, device=device)[None, :]
     bos = (pos + offs) % dcfg.doc_len == 0
     tokens = torch.where(bos, 1, tokens).to(torch.int32)
-    return {"tokens": tokens, "labels": tokens,
-            "mask": torch.ones((b, s), dtype=torch.float32, device=device)}
+    batch = {"tokens": tokens, "labels": tokens,
+             "mask": torch.ones((b, s), dtype=torch.float32, device=device)}
+    rows = {"vision_stub": cfg.frontend_tokens,
+            "audio_stub": cfg.encoder_seq}.get(cfg.frontend)
+    if rows is not None:
+        batch["frontend"] = torch.randn(
+            (b, rows, cfg.d_model), generator=gen, dtype=torch.float32,
+            device=device) * 0.02
+    return batch
 
 
 def synthetic_batch_iterator(cfg: ArchConfig, shape: ShapeConfig,

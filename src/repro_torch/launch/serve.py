@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --reduced --device cpu          # or whisper-base, internvl2-26b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 8 --prompt-len 32 --new-tokens 32
 
 Mirrors ``repro.launch.serve``, with the same flags plus ``--device``;
-``--arch`` takes any registered arch (dense, MoE or the zamba2 hybrid):
+``--arch`` takes any of the ten registered archs (the frontend stubs'
+archs serve text only, as the reference's launcher does):
 random parameters from a seed (bf16 storage at full width, f32 with
 ``--reduced``), prompts from a seeded ``torch.Generator``, then
 `serve_batch`. It runs on the card unless given ``--device cpu``.

@@ -6,7 +6,8 @@
       --batch 4 --seq 1024
 
 Mirrors ``repro.launch.train``: random f32 parameters from a seed,
-synthetic batches, the train step with the step watchdog and straggler
+synthetic batches (with the frontend stub's embeddings for whisper-base
+and internvl2-26b), the train step with the step watchdog and straggler
 detector around it. It runs on the card unless given ``--device cpu``.
 Remat is "full", or "none" with ``--reduced``, as the reference's
 launcher sets it; the train step is the reference's default (no pod

@@ -4,11 +4,12 @@ training, and decode (one new token against a KV cache).
 PyTorch counterpart of ``repro.models.attention``, written as the
 reference's math: project, RMS-normalise q and k, RoPE, expand the KV
 heads, scaled scores in f32, mask, softmax, weighted sum, output
-projection. The blockwise path keeps the reference's running (m, l, acc)
-and its two tile orders (every KV block, or the static causal/banded
-pair list); it is plain torch on purpose, held to the reference, not
-``scaled_dot_product_attention``. The KV cache keeps the reference's
-(B, T, K, H) layout and is written in place.
+projection; cross attention (whisper's decoder over its encoder) has
+no RoPE and no q/k norms. The blockwise path keeps the reference's
+running (m, l, acc) and its two tile orders (every KV block, or the
+static causal/banded pair list); it is plain torch on purpose, held to
+the reference, not ``scaled_dot_product_attention``. The KV cache
+keeps the reference's (B, T, K, H) layout and is written in place.
 """
 from __future__ import annotations
 
@@ -21,15 +22,18 @@ from repro_torch.models.layers import F32, apply_rope, dot, normal, rms_norm
 NEG_INF = -1e30
 
 
-def init_attention(gen: torch.Generator, cfg, *, layers: int = 0,
-                   dtype=F32):
+def init_attention(gen: torch.Generator, cfg, *, cross: bool = False,
+                   layers: int = 0, dtype=F32):
+    """Projections wq (D,NH,H), wk/wv (D,K,H), wo (NH,H,D) in `dtype`;
+    with cfg.qk_norm, f32 q_norm/k_norm scales, which a cross-attention
+    block (`cross`) does not have."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {"wq": normal(gen, (d, nh, hd), layers=layers, dtype=dtype),
          "wk": normal(gen, (d, nkv, hd), layers=layers, dtype=dtype),
          "wv": normal(gen, (d, nkv, hd), layers=layers, dtype=dtype),
          "wo": normal(gen, (nh, hd, d), layers=layers, dtype=dtype)}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         full = ((layers,) if layers else ()) + (hd,)
         p["q_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
         p["k_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
@@ -218,3 +222,16 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
     out = dot(p, vx, "bnst,btnh->bsnh").to(x.dtype)
     y = dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
     return y, cache
+
+
+def decode_cross_attention(params, cfg, x, cross_kv):
+    """Cross attention of one new token x (B,1,D) over the static encoder
+    KV cross_kv {k, v} (B,T,K,H): no RoPE, no mask. Returns (B,1,D)."""
+    q = dot(x, params["wq"].to(x.dtype), "bsd,dnh->bsnh").to(x.dtype)
+    kx = _expand_kv(cross_kv["k"].to(x.dtype), cfg)
+    vx = _expand_kv(cross_kv["v"].to(x.dtype), cfg)
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    s = dot(q, kx, "bsnh,btnh->bnst") * scale
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    out = dot(p, vx, "bnst,btnh->bsnh").to(x.dtype)
+    return dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)

@@ -23,17 +23,28 @@ def normal(gen: torch.Generator, shape, *, scale=None, layers: int = 0,
            dtype=F32) -> torch.Tensor:
     """N(0, scale^2) weights (default scale 1/sqrt(shape[0])), drawn in f32
     on the generator's device and cast to `dtype`; `layers` > 0 prepends
-    a stacked (L,) axis with the per-layer scale. The draw is scaled in
-    place, so a stacked leaf costs one f32 transient, not two."""
+    a stacked (L,) axis with the per-layer scale. A stacked leaf is
+    allocated once in `dtype` and filled one layer at a time from an f32
+    draw scaled in place, so the f32 transient is one layer, not the
+    stack."""
     s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    full = ((layers,) if layers else ()) + tuple(shape)
-    w = torch.randn(full, generator=gen, dtype=F32, device=gen.device)
-    return w.mul_(s).to(dtype)
+    shape = tuple(shape)
+    out = torch.empty(((layers,) if layers else ()) + shape, dtype=dtype,
+                      device=gen.device)
+    for layer in out.view((-1,) + shape):
+        layer.copy_(torch.randn(shape, generator=gen, dtype=F32,
+                                device=gen.device).mul_(s))
+    return out
 
 
 def zeros(shape, *, layers: int = 0, device=None) -> torch.Tensor:
     full = ((layers,) if layers else ()) + tuple(shape)
     return torch.zeros(full, dtype=F32, device=device)
+
+
+def ones(shape, *, layers: int = 0, device=None) -> torch.Tensor:
+    full = ((layers,) if layers else ()) + tuple(shape)
+    return torch.ones(full, dtype=F32, device=device)
 
 
 def init_rms_norm(dim: int, *, layers: int = 0, device=None):

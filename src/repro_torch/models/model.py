@@ -2,16 +2,26 @@
 and loss, and the decode path.
 
 PyTorch counterpart of ``repro.models.model``: `init_model`, `forward`,
-`loss_fn`, `init_decode_state`, `decode_step` and `prefill` for the
-dense (GQA attention + SwiGLU MLP: qwen3, yi, minitron), MoE (the MLP
-swapped for the routed experts: olmoe, qwen3-moe) and hybrid (zamba2:
-Mamba2 layers with one shared attention block applied every
-`shared_attn_every` layers, tied weights, its input re-injected with the
-embedding) families. The reference's `lax.scan` over a run of stacked
-layers is a Python loop over the run's (L,) axis; `jax.checkpoint`
-around the scan body is `torch.utils.checkpoint` around each layer. The
-xLSTM block kinds, cross attention, the encoder and the frontends are
-not ported yet and raise.
+`loss_fn`, `init_decode_state`, `decode_step` and `prefill` for every
+family of the reference:
+
+- dense (GQA attention + SwiGLU MLP: qwen3, yi, minitron) and MoE (the
+  MLP swapped for the routed experts: olmoe, qwen3-moe);
+- vlm (internvl2): the dense stack with the `vision_stub` frontend's
+  patch embeddings prepended to the text;
+- audio (whisper): an encoder of non-causal ATTN blocks over the
+  `audio_stub` frame embeddings, and decoder blocks that add cross
+  attention over its output. As in the reference, the decode state's
+  cross cache (`xk`/`xv`) is zeros that neither `prefill` nor the decode
+  ever writes, so a decode attends uniformly over zero values;
+- ssm (xlstm): runs of mLSTM and sLSTM blocks;
+- hybrid (zamba2): Mamba2 layers with one shared attention block applied
+  every `shared_attn_every` layers, tied weights, its input re-injected
+  with the embedding.
+
+The reference's `lax.scan` over a run of stacked layers is a Python loop
+over the run's (L,) axis; `jax.checkpoint` around the scan body is
+`torch.utils.checkpoint` around each layer.
 """
 from __future__ import annotations
 
@@ -22,11 +32,13 @@ from typing import Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.configs.base import ATTN, MAMBA2, ArchConfig
+from repro_torch.configs.base import ATTN, MAMBA2, MLSTM, SLSTM, ArchConfig
 from repro_torch.core.compute_plane import tree_leaves, tree_map
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (attention, decode_attention,
+                                          decode_cross_attention,
                                           init_attention, init_kv_cache)
 from repro_torch.models.layers import (F32, apply_rope, dot, embed,
                                        init_embedding, init_mlp,
@@ -67,39 +79,37 @@ def _plan(cfg: ArchConfig):
     return runs
 
 
-def _check_ported(cfg: ArchConfig):
-    if (cfg.cross_attention or cfg.encoder_layers or cfg.frontend
-            or any(kind not in (ATTN, MAMBA2) for kind in cfg.blocks())):
-        raise NotImplementedError(
-            f"{cfg.name}: the xLSTM blocks, cross attention, the encoder "
-            f"and the frontends are not ported yet")
-
-
 # ==========================================================================
 # init
 # ==========================================================================
-def _init_block(gen, cfg, kind, count: int, dtype):
+_MIXERS = {MAMBA2: ssm_mod.init_mamba2, MLSTM: xlstm_mod.init_mlstm,
+           SLSTM: xlstm_mod.init_slstm}
+
+
+def _init_block(gen, cfg, kind, count: int, dtype, cross: bool = False):
     """Parameters of `count` stacked blocks of `kind` (count 0: one
-    unstacked block)."""
-    dev = gen.device
-    if kind == ATTN:
-        if cfg.is_moe:
-            ffn = moe_mod.init_moe(gen, cfg, layers=count, dtype=dtype)
-        else:
-            ffn = init_mlp(gen, cfg.d_model, cfg.d_ff, layers=count,
-                           dtype=dtype)
-        return {"norm1": init_rms_norm(cfg.d_model, layers=count,
-                                       device=dev),
-                "attn": init_attention(gen, cfg, layers=count, dtype=dtype),
-                "norm2": init_rms_norm(cfg.d_model, layers=count,
-                                       device=dev),
-                "ffn": ffn}
-    if kind == MAMBA2:
-        return {"norm1": init_rms_norm(cfg.d_model, layers=count,
-                                       device=dev),
-                "mixer": ssm_mod.init_mamba2(gen, cfg, layers=count,
-                                             dtype=dtype)}
-    raise NotImplementedError(f"block kind {kind!r} is not ported")
+    unstacked block); `cross` adds an ATTN block's cross attention."""
+    def norm():
+        return init_rms_norm(cfg.d_model, layers=count, device=gen.device)
+
+    if kind in _MIXERS:
+        return {"norm1": norm(),
+                "mixer": _MIXERS[kind](gen, cfg, layers=count, dtype=dtype)}
+    if kind != ATTN:
+        raise ValueError(kind)
+    p = {"norm1": norm(),
+         "attn": init_attention(gen, cfg, layers=count, dtype=dtype)}
+    if cross:
+        p["norm_x"] = norm()
+        p["xattn"] = init_attention(gen, cfg, cross=True, layers=count,
+                                    dtype=dtype)
+    p["norm2"] = norm()
+    if cfg.is_moe:
+        p["ffn"] = moe_mod.init_moe(gen, cfg, layers=count, dtype=dtype)
+    else:
+        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, layers=count,
+                            dtype=dtype)
+    return p
 
 
 def init_model(cfg: ArchConfig, gen: torch.Generator, dtype=F32):
@@ -107,14 +117,18 @@ def init_model(cfg: ArchConfig, gen: torch.Generator, dtype=F32):
     its device; `dtype` is the storage type of the weight matrices (the
     reference keeps f32 and casts at use, so bf16 storage computes the
     same bf16 decode)."""
-    _check_ported(cfg)
     dev = gen.device
     params = {"embed": init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                       dtype)}
-    params["runs"] = tuple(_init_block(gen, cfg, kind, count, dtype)
-                           for kind, count in _plan(cfg))
+    params["runs"] = tuple(
+        _init_block(gen, cfg, kind, count, dtype, cfg.cross_attention)
+        for kind, count in _plan(cfg))
     if cfg.shared_attn_every:
         params["shared_attn"] = _init_block(gen, cfg, ATTN, 0, dtype)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "runs": _init_block(gen, cfg, ATTN, cfg.encoder_layers, dtype),
+            "norm": init_rms_norm(cfg.d_model, device=dev)}
     params["final_norm"] = init_rms_norm(cfg.d_model, device=dev)
     params["unembed"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                        dtype)
@@ -128,16 +142,20 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
                  positions=None, collect_kv=False):
     """Returns (x, aux, kv_or_None): with `collect_kv`, an ATTN block's K
     and V for a decode cache, recomputed from the normed input (K through
-    k_norm, then RoPE at `positions`), as the reference does."""
-    if enc is not None:
-        raise NotImplementedError("cross attention is not ported")
+    k_norm, then RoPE at `positions`), as the reference does. With `enc`
+    (B,T,D), an ATTN block adds cross attention over it after the self
+    attention."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     if kind == MAMBA2:
         h = rms_norm(x, p["norm1"]["scale"])
         return x + ssm_mod.mamba2(p["mixer"], cfg, h, chunk=opt.ssd_chunk), \
             aux, None
+    if kind in (MLSTM, SLSTM):
+        fwd = xlstm_mod.mlstm if kind == MLSTM else xlstm_mod.slstm
+        h = rms_norm(x, p["norm1"]["scale"])
+        return x + fwd(p["mixer"], cfg, h), aux, None
     if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+        raise ValueError(kind)
     h = rms_norm(x, p["norm1"]["scale"])
     y = attention(p["attn"], cfg, h, positions=positions, causal=causal,
                   window=window, flash_threshold=opt.flash_threshold,
@@ -154,6 +172,10 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
         v = dot(h, p["attn"]["wv"].to(dt), "btd,dkh->btkh").to(dt)
         kv = {"k": k.to(dt), "v": v.to(dt)}
     x = x + y
+    if enc is not None:
+        h = rms_norm(x, p["norm_x"]["scale"])
+        x = x + attention(p["xattn"], cfg, h, kv_x=enc, causal=False,
+                          flash_threshold=opt.flash_threshold)
     h = rms_norm(x, p["norm2"]["scale"])
     if cfg.is_moe:
         y, aux = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
@@ -232,12 +254,13 @@ def _zamba_groups(params, cfg):
                     params), groups, per
 
 
-def _forward_stack(params, cfg, x, opt, *, positions=None,
+def _forward_stack(params, cfg, x, opt, *, positions=None, enc=None,
                    collect_kv=False):
-    """Run the decoder stack. Returns (x, aux, caches: one per run of the
-    plan, each None or {"k", "v"} stacked over the run's layers). The
-    hybrid collects no caches: its prefill leaves the state zero, as the
-    reference's does."""
+    """Run the decoder stack (with cross attention over `enc` when it is
+    given). Returns (x, aux, caches: one per run of the plan, each None
+    or {"k", "v"} stacked over the run's layers). The hybrid collects no
+    caches: its prefill leaves the state zero, as the reference's
+    does."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     window = _window(cfg, opt)
     if cfg.shared_attn_every:
@@ -261,29 +284,54 @@ def _forward_stack(params, cfg, x, opt, *, positions=None,
     caches = []
     for (kind, _), run_params in zip(_plan(cfg), params["runs"]):
         x, a, kvs = _run_scan(run_params, kind, x, cfg, opt, causal=True,
-                              window=window, positions=positions,
+                              window=window, enc=enc, positions=positions,
                               collect_kv=collect_kv and kind == ATTN)
         aux = aux + a
         caches.append(kvs)
     return x, aux, caches
 
 
-def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
-    """Training forward. batch: {tokens (B,S) int} -> (logits (B,S,Vp)
-    f32, aux)."""
-    _check_ported(cfg)
+def _encode(params, cfg, frontend, opt):
+    """Whisper-style encoder over the stubbed frame embeddings (B, T, D):
+    non-causal ATTN blocks, then the encoder's norm."""
+    x = frontend.to(getattr(torch, cfg.dtype))
+    x, _, _ = _run_scan(params["encoder"]["runs"], ATTN, x, cfg, opt,
+                        causal=False)
+    return rms_norm(x, params["encoder"]["norm"]["scale"])
+
+
+def _embed_inputs(params, cfg, batch, opt):
+    """The decoder's input (B, T, D) and the encoder output or None:
+    `vision_stub` prepends the batch's frontend embeddings (B, F, D) to
+    the token embeddings, `audio_stub` encodes its frames."""
     dtype = getattr(torch, cfg.dtype)
     x = embed(params["embed"], batch["tokens"].long(), dtype)
+    enc = None
+    if cfg.frontend == "vision_stub":
+        x = torch.cat([batch["frontend"].to(dtype), x], dim=1)
+    elif cfg.frontend == "audio_stub":
+        enc = _encode(params, cfg, batch["frontend"], opt)
+    return x, enc
+
+
+def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
+    """Training forward. batch: {tokens (B,S) int, frontend (the stubs'
+    embeddings)} -> (logits (B,T,Vp) f32, aux); T = S, or F + S with
+    `vision_stub`."""
+    x, enc = _embed_inputs(params, cfg, batch, opt)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux, _ = _forward_stack(params, cfg, x, opt, positions=positions)
+    x, aux, _ = _forward_stack(params, cfg, x, opt, positions=positions,
+                               enc=enc)
     x = rms_norm(x, params["final_norm"]["scale"])
     return unembed(params["unembed"], x), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch, opt: ModelOptions):
     """(loss, {"xent", "aux"}): next-token cross entropy (+ z-loss) under
-    the batch's mask, plus 0.01 * aux."""
+    the batch's mask over the text positions, plus 0.01 * aux."""
     logits, aux = forward(params, cfg, batch, opt)
+    if cfg.frontend == "vision_stub":
+        logits = logits[:, cfg.frontend_tokens:, :]
     labels = batch["labels"]
     mask = batch.get("mask")
     xent = softmax_xent(logits[:, :-1, :], labels[:, 1:],
@@ -302,20 +350,31 @@ def _kv_rows(cfg, opt, max_len: int) -> int:
     return min(max_len, window) if opt.window_ring and window else max_len
 
 
-def _stacked_kv(cfg, batch: int, rows: int, count: int, device):
+def _stacked_kv(cfg, batch: int, rows: int, count: int, device,
+                cross: bool = False):
+    """KV caches of `count` ATTN layers, (count, B, rows, K, H); `cross`
+    adds the zero cross cache xk/xv (count, B, encoder_seq, K, H)."""
     one = init_kv_cache(cfg, batch, rows, device=device)
+    if cross:
+        enc = init_kv_cache(cfg, batch, cfg.encoder_seq, device=device)
+        one.update(xk=enc["k"], xv=enc["v"])
     return {k: v.expand((count,) + v.shape).contiguous()
             for k, v in one.items()}
+
+
+_STATES = {MAMBA2: ssm_mod.init_mamba2_state,
+           MLSTM: xlstm_mod.init_mlstm_state,
+           SLSTM: xlstm_mod.init_slstm_state}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       opt: ModelOptions, device=None):
     """Zeroed decode state {"runs": (...)}: per run of the plan, the
-    stacked (L, B, T, K, H) KV caches of an ATTN run or the (L, ...)
-    mamba states of a MAMBA2 run. The hybrid has two entries: the mamba
-    states as (groups, per, B, ...) and the shared block's KV caches as
-    (groups, B, T, K, H)."""
-    _check_ported(cfg)
+    stacked (L, B, T, K, H) KV caches of an ATTN run (with whisper's
+    cross cache xk/xv) or the (L, ...) recurrent states of a MAMBA2,
+    MLSTM or SLSTM run. The hybrid has two entries: the mamba states as
+    (groups, per, B, ...) and the shared block's KV caches as (groups,
+    B, T, K, H)."""
     rows = _kv_rows(cfg, opt, max_len)
     if cfg.shared_attn_every:
         groups = cfg.num_layers // cfg.shared_attn_every
@@ -324,11 +383,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
             device=device)
         return {"runs": (mamba, _stacked_kv(cfg, batch, rows, groups,
                                             device))}
-    return {"runs": tuple(
-        _stacked_kv(cfg, batch, rows, count, device) if kind == ATTN
-        else ssm_mod.init_mamba2_state(cfg, batch, layers=(count,),
-                                       device=device)
-        for kind, count in _plan(cfg))}
+    runs = []
+    for kind, count in _plan(cfg):
+        if kind == ATTN:
+            runs.append(_stacked_kv(cfg, batch, rows, count, device,
+                                    cfg.cross_attention))
+        elif kind in _STATES:
+            runs.append(_STATES[kind](cfg, batch, layers=(count,),
+                                      device=device))
+        else:
+            raise ValueError(kind)
+    return {"runs": tuple(runs)}
 
 
 def _layer(tree, *i):
@@ -337,19 +402,27 @@ def _layer(tree, *i):
     return tree_map(lambda t: t[i], tree)
 
 
+_DECODERS = {MAMBA2: ssm_mod.mamba2_decode, MLSTM: xlstm_mod.mlstm_decode,
+             SLSTM: xlstm_mod.slstm_decode}
+
+
 def _decode_block(kind, p, cfg, x, state, pos, opt, window):
-    """One block on one new token; `state` (the layer's KV cache or mamba
-    state) is written in place. Returns (x, state)."""
-    if kind == MAMBA2:
+    """One block on one new token; `state` (the layer's KV cache or
+    recurrent state) is written in place. Returns (x, state)."""
+    if kind in _DECODERS:
         h = rms_norm(x, p["norm1"]["scale"])
-        y, state = ssm_mod.mamba2_decode(p["mixer"], cfg, h, state)
+        y, state = _DECODERS[kind](p["mixer"], cfg, h, state)
         return x + y, state
     if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+        raise ValueError(kind)
     h = rms_norm(x, p["norm1"]["scale"])
     y, _ = decode_attention(p["attn"], cfg, h, state, pos, window=window,
                             ring=opt.window_ring and window > 0)
     x = x + y
+    if "xk" in state:
+        h = rms_norm(x, p["norm_x"]["scale"])
+        x = x + decode_cross_attention(p["xattn"], cfg, h,
+                                       {"k": state["xk"], "v": state["xv"]})
     h = rms_norm(x, p["norm2"]["scale"])
     if cfg.is_moe:
         y, _ = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
@@ -361,7 +434,7 @@ def _decode_block(kind, p, cfg, x, state, pos, opt, window):
 def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
                 opt: ModelOptions):
     """One decode step. tokens: (B,1) int; pos: the Python int position.
-    The KV caches and mamba states in `state` are written in place.
+    The KV caches and recurrent states in `state` are written in place.
 
     Returns (logits (B, vocab_padded) f32, state)."""
     dtype = getattr(torch, cfg.dtype)
@@ -390,24 +463,29 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
 
 def prefill(params, cfg: ArchConfig, batch, max_len: int,
             opt: ModelOptions):
-    """One-pass prefill: the forward over `batch["tokens"]` (B, S) and a
-    decode-ready state whose ATTN KV caches (max_len positions) hold the
-    prompt's K and V from row 0. As in the reference, the hybrid's state
-    (mamba states and the shared block's caches) stays zero: the serve
-    loops prefill token by token through `decode_step`. Returns (logits
-    (B, S, vocab_padded) f32, state)."""
-    _check_ported(cfg)
-    dtype = getattr(torch, cfg.dtype)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed(params["embed"], tokens.long(), dtype)
-    positions = torch.arange(s, device=x.device)
+    """One-pass prefill: the forward over `batch["tokens"]` (B, S) (and
+    the frontend input, as in `forward`) and a decode-ready state whose
+    ATTN KV caches (max_len positions) hold the T = S (F + S with
+    `vision_stub`) input positions' K and V from row 0. As in the
+    reference, the recurrent states (the hybrid's, with its shared
+    block's caches, and xLSTM's) and whisper's cross cache stay zero: the
+    serve loops prefill token by token through `decode_step`. Returns
+    (logits (B, T, vocab_padded) f32, state)."""
+    x, enc = _embed_inputs(params, cfg, batch, opt)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device)
     x, _, caches = _forward_stack(params, cfg, x, opt, positions=positions,
-                                  collect_kv=True)
+                                  enc=enc, collect_kv=True)
     state = init_decode_state(cfg, b, max_len, opt, device=x.device)
     for run_state, kv in zip(state["runs"], caches):
-        if kv is not None:
-            run_state["k"][:, :, :s] = kv["k"]
-            run_state["v"][:, :, :s] = kv["v"]
+        if kv is None:
+            continue
+        if t > run_state["k"].shape[2]:
+            raise ValueError(
+                f"prefill of {t} positions (frontend tokens included) does "
+                f"not fit a KV cache of {run_state['k'].shape[2]} rows: "
+                f"raise max_len")
+        run_state["k"][:, :, :t] = kv["k"]
+        run_state["v"][:, :, :t] = kv["v"]
     x = rms_norm(x, params["final_norm"]["scale"])
     return unembed(params["unembed"], x), state

@@ -1,14 +1,16 @@
-"""The port's dense, MoE and Mamba2-hybrid families against the
-reference, on reduced configs in f32: qwen3-8b, yi-9b, minitron-4b,
-olmoe-1b-7b, qwen3-moe-30b-a3b and zamba2-2.7b.
+"""The port's model families against the reference, on reduced configs
+in f32: dense (qwen3-8b, yi-9b, minitron-4b), MoE (olmoe-1b-7b,
+qwen3-moe-30b-a3b), the Mamba2 hybrid (zamba2-2.7b), xLSTM (xlstm-125m),
+audio encoder-decoder (whisper-base) and vision-language
+(internvl2-26b).
 
 Parameters come from the reference's `init_model` through
-`convert.params_from_numpy`, tokens from a numpy seed, so both packages
-compute the same function. Tolerances: forward logits, loss, xent and aux,
-decode and prefill logits and states within rtol = atol = 1e-4 (f32 sums
-taken in another order); `serve_batch_paged` gives equal greedy tokens
-and a ledger within rtol 1e-5, atol 1e-6 (tests/test_torch_serve.py's
-bar)."""
+`convert.params_from_numpy`, tokens and the frontend stubs' embeddings
+from a numpy seed, so both packages compute the same function.
+Tolerances: forward logits, loss, xent and aux, decode and prefill
+logits and states within rtol = atol = 1e-4 (f32 sums taken in another
+order); `serve_batch_paged` gives equal greedy tokens and a ledger
+within rtol 1e-5, atol 1e-6 (tests/test_torch_serve.py's bar)."""
 import dataclasses
 import functools
 
@@ -27,7 +29,7 @@ from repro.runtime.serve_loop import ServeConfig as JServe
 from repro.runtime.serve_loop import serve_batch_paged as j_serve
 from repro_torch import convert
 from repro_torch.configs import get_config, get_shape, list_archs
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN, ArchConfig
 from repro_torch.core.compute_plane import tree_map
 from repro_torch.core.daemon_store import KVStoreConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
@@ -41,8 +43,9 @@ from repro_torch.runtime.train_loop import TrainConfig, make_train_step
 torch.set_num_threads(1)
 
 ARCHS = ("qwen3-8b", "yi-9b", "minitron-4b", "olmoe-1b-7b",
-         "qwen3-moe-30b-a3b", "zamba2-2.7b")
-NOT_PORTED = ("internvl2-26b", "whisper-base", "xlstm-125m")
+         "qwen3-moe-30b-a3b", "zamba2-2.7b", "xlstm-125m", "whisper-base",
+         "internvl2-26b")
+NOT_PORTED = ()
 TOL = dict(rtol=1e-4, atol=1e-4)
 STORE = dict(num_local_pages=4, page_tokens=2, kv_heads=2, head_dim=16,
              page_budget_per_step=2)
@@ -70,6 +73,18 @@ def _params(cfg, np_params):
 def _tokens(cfg, shape, seed=1):
     return np.random.default_rng(seed).integers(
         2, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _frontend(cfg, b, seed=3):
+    """The stub's `frontend` input for a batch of `b` (empty without a
+    frontend): patch embeddings (b, F, D) or audio frames (b, T_enc,
+    D)."""
+    if not cfg.frontend:
+        return {}
+    rows = cfg.frontend_tokens if cfg.frontend == "vision_stub" \
+        else cfg.encoder_seq
+    return {"frontend": (np.random.default_rng(seed).standard_normal(
+        (b, rows, cfg.d_model)) * 0.5).astype(np.float32)}
 
 
 def _pairs(a, b, path=""):
@@ -109,15 +124,16 @@ def test_config_equals_reference(arch):
 
 
 def test_registry_and_what_stays_unported():
+    """Every arch of the reference is registered and none is left
+    unported: each one's reduced config builds its parameters and decode
+    state in the port."""
     assert list_archs() == sorted(ARCHS + ("qwen3-1.7b",))
     assert set(j_list_archs()) == set(list_archs()) | set(NOT_PORTED)
+    assert not hasattr(TMod, "_check_ported")
     for name in j_list_archs():
-        cfg = ArchConfig(**dataclasses.asdict(j_get_config(name)))
-        if name in NOT_PORTED:
-            with pytest.raises(NotImplementedError):
-                TMod._check_ported(cfg)
-        else:
-            TMod._check_ported(cfg)
+        cfg = ArchConfig(**dataclasses.asdict(j_get_config(name))).reduced()
+        TMod.init_model(cfg, torch.Generator().manual_seed(0))
+        TMod.init_decode_state(cfg, 1, 4, TMod.ModelOptions(), device="cpu")
     assert get_config("olmoe-1b-7b").param_count() == 6_919_100_416
     assert get_config("zamba2-2.7b").param_count() == 2_422_382_528
 
@@ -158,7 +174,8 @@ def test_forward_and_loss_match_reference(arch):
     toks = _tokens(cfg, (2, 16))
     mask = np.ones((2, 16), np.float32)
     mask[1, 10:] = 0.0
-    batch = {"tokens": toks, "labels": toks, "mask": mask}
+    batch = {"tokens": toks, "labels": toks, "mask": mask,
+             **_frontend(cfg, 2)}
     j_logits, j_aux = jax.jit(lambda p, b: JMod.forward(p, jcfg, b, jopt))(
         np_params, batch)
     (j_loss, j_m) = jax.jit(lambda p, b: JMod.loss_fn(p, jcfg, b, jopt))(
@@ -202,22 +219,25 @@ def test_decode_step_matches_reference_over_8_steps(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_reference(arch):
-    """Logits and state; the hybrid's state stays zero in both."""
+    """Logits and state (12 cache rows past the frontend's tokens); the
+    recurrent states (hybrid, xLSTM) stay zero in both, and only the
+    attention stacks' caches are written."""
     jcfg, cfg, np_params = _setup(arch)
     jopt, opt = _opts()
-    toks = _tokens(cfg, (2, 8))
-    j_logits, j_state = jax.jit(lambda p, t: JMod.prefill(
-        p, jcfg, {"tokens": t}, 12, jopt))(np_params, toks)
+    batch = {"tokens": _tokens(cfg, (2, 8)), **_frontend(cfg, 2)}
+    max_len = 12 + cfg.frontend_tokens
+    j_logits, j_state = jax.jit(lambda p, b: JMod.prefill(
+        p, jcfg, b, max_len, jopt))(np_params, batch)
     with torch.no_grad():
         logits, state = TMod.prefill(_params(cfg, np_params), cfg,
-                                     {"tokens": torch.from_numpy(toks)}, 12,
-                                     opt)
+                                     convert.batch_from_numpy(batch, "cpu"),
+                                     max_len, opt)
     np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), **TOL)
     _assert_trees(jax.device_get(j_state), state, **TOL)
     leaves = [convert.to_numpy(t) for _, _, t in _pairs(
         jax.device_get(j_state), state)]
-    assert any(np.abs(x).max() > 0 for x in leaves) == (
-        not cfg.shared_attn_every)
+    writes_kv = ATTN in cfg.blocks() and not cfg.shared_attn_every
+    assert any(np.abs(x).max() > 0 for x in leaves) == writes_kv
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,18 @@ page rows and are held bit for bit there), with a full-width one-pass
 prefill of whisper's 1500 audio frames and internvl2's 256 patches
 (`[prefill_frontends]`). Then it trains: the card against the CPU on
 reduced qwen3-1.7b, and four steps at full width with the
-int8-compressed pod-gradient sync on the block-int8 kernels. Last it
+int8-compressed pod-gradient sync on the block-int8 kernels. Across
+ranks, each on a world-1 NCCL process group of the card: one reduced
+step with the pod sync all-gathered over the `pod` group, bit-equal to
+the step without a group (`[train_reference_dist]`); the full-width
+train through `run_with_restarts` and an async `CheckpointManager`, a
+failure injected before step 3 and step 2 restored, ending in
+`[train]`'s state leaf by leaf (`[train_restart]`, 24.4 GB written and
+read back under build/); GPipe's `pipeline_forward` over the `stage`
+group with qwen3-1.7b's 28 bf16 blocks as the stage, bit-equal to the
+blocks in turn (`[pipeline]`); and one full-width olmoe-1b-7b MoE layer
+through `moe_ep` over the `model` group against `moe_dense`, forward and
+backward (`[moe_ep]`). Last it
 runs the request-level simulator (`repro_torch.sim`): the seed golden
 (pr and dr, 9 schemes x 3 nets, r = 6000) held to
 tests/golden/seed_movement_golden.json (`[sim_golden]`), every lattice
@@ -46,7 +57,8 @@ Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches
 on its path (serving for the store's kernels, per path in
 `launches_by_path`, the family serve paths included; training for the
-quantizer; its own phase for BDI, which no path reaches), its time
+quantizer, with the new across-rank paths in its `launches_by_path`;
+its own phase for BDI, which no path reaches), its time
 against its bound, the plain version's time and the library call's; and
 last `{"ok": true, "device": {...}}`. Any failure raises and exits
 non-zero before those lines. Without a CUDA device, or without the
@@ -54,11 +66,14 @@ repository around it, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import hashlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,7 +91,13 @@ import torch  # noqa: E402
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
 
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.checkpoint import (CheckpointConfig,  # noqa: E402
+                                    CheckpointManager)
+from repro_torch.checkpoint import manager as CK  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ATTN  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import compression  # noqa: E402
 from repro_torch.core import daemon_store as DS  # noqa: E402
@@ -95,6 +116,9 @@ from repro_torch.kernels import paged_gather as PG  # noqa: E402
 from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
+from repro_torch.launch.mesh import (build_mesh,  # noqa: E402
+                                     init_distributed, shutdown_distributed)
+from repro_torch.models import model as MODEL  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import xlstm as XL  # noqa: E402
@@ -103,7 +127,10 @@ from repro_torch.models.layers import mlp, padded_vocab  # noqa: E402
 from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
                                       init_decode_state, init_model, prefill)
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
-from repro_torch.runtime.fault import LinkHealthMonitor  # noqa: E402
+from repro_torch.runtime.fault import (LinkHealthMonitor,  # noqa: E402
+                                       run_with_restarts)
+from repro_torch.runtime.mesh_rules import use_mesh  # noqa: E402
+from repro_torch.runtime.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.runtime.obs import counter_events, trace_export  # noqa
 from repro_torch.runtime.serve_loop import (  # noqa: E402
     PagedServeConfig, ServeConfig, make_decode_fn, paged_request_window,
@@ -1312,7 +1339,8 @@ def qdq_phase(gen):
            "ms": device_ms(lambda: QD.quantize_block_int8(x)),
            "plain_ms": device_ms(lambda: REF.quantize_block_int8(x), iters=3,
                                  replays=3),
-           "bound_ms": bytes_q / HBM_BYTES_PER_MS}
+           "bound_ms": bytes_q / HBM_BYTES_PER_MS,
+           "call_ms": call_ms(lambda: QD.quantize_block_int8(x))}
     k3d = {"name": "dequantize_block_int8", **common,
            "max_abs_err": max(ed0, ed1),
            "replaces": "src/repro/kernels/qdq_int8.py:52",
@@ -1321,7 +1349,8 @@ def qdq_phase(gen):
                                  iters=3, replays=3),
            # int8 * f32 promotes to f32 and multiplies in one pass
            "library_ms": device_ms(lambda: q * s),
-           "bound_ms": bytes_d / HBM_BYTES_PER_MS}
+           "bound_ms": bytes_d / HBM_BYTES_PER_MS,
+           "call_ms": call_ms(lambda: QD.dequantize_block_int8(q, s))}
     bf16_ms = device_ms(lambda: QD.dequantize_block_int8(q, s, torch.bfloat16))
     phase("qdq_int8", exact=True,
           cases=f"13x256(zero,ties,nan,inf),{n}x{b}",
@@ -1330,6 +1359,7 @@ def qdq_phase(gen):
           dequant_ms=k3d["ms"], dequant_plain_ms=k3d["plain_ms"],
           dequant_library_ms=k3d["library_ms"],
           dequant_bound_ms=k3d["bound_ms"], dequant_bf16_ms=bf16_ms,
+          quant_call_ms=k3q["call_ms"], dequant_call_ms=k3d["call_ms"],
           dequant_bf16_bound_ms=(n * b * 3 + n * 4) / HBM_BYTES_PER_MS)
     return k3q, k3d
 
@@ -1409,7 +1439,8 @@ def bdi_phase(gen, kcache):
            "ms": device_ms(lambda: BDI.bdi_compress(x)),
            "plain_ms": device_ms(lambda: REF.bdi_compress(x), iters=3,
                                  replays=3),
-           "bound_ms": bytes_c / HBM_BYTES_PER_MS}
+           "bound_ms": bytes_c / HBM_BYTES_PER_MS,
+           "call_ms": call_ms(lambda: BDI.bdi_compress(x))}
     k4d = {"name": "bdi_decompress", **common,
            "replaces": "src/repro/kernels/bdi.py:58", "launches": launches[1],
            "max_abs_err": max(ed0, ed1, ed2),
@@ -1417,14 +1448,17 @@ def bdi_phase(gen, kcache):
            "plain_ms": device_ms(lambda: REF.bdi_decompress(base, deltas,
                                                             okx, x),
                                  iters=3, replays=3),
-           "bound_ms": bytes_d / HBM_BYTES_PER_MS}
+           "bound_ms": bytes_d / HBM_BYTES_PER_MS,
+           "call_ms": call_ms(lambda: BDI.bdi_decompress(base, deltas, okx,
+                                                         x))}
     phase("bdi", exact=True, rows=f"48+{kc.shape[0]}(kcache)+{n}",
           kcache_ok_rows=int((kc_ok != 0).sum()), plane_raw_rows=n_raw,
           launches=launches, compress_ms=k4c["ms"],
           compress_plain_ms=k4c["plain_ms"],
           compress_bound_ms=k4c["bound_ms"], decompress_ms=k4d["ms"],
           decompress_plain_ms=k4d["plain_ms"],
-          decompress_bound_ms=k4d["bound_ms"])
+          decompress_bound_ms=k4d["bound_ms"],
+          compress_call_ms=k4c["call_ms"], decompress_call_ms=k4d["call_ms"])
     return k4c, k4d
 
 
@@ -1520,6 +1554,7 @@ def train_phase():
         gnorms.append(float(m["grad_norm"]))
     counts = tuple(k.launches for k in QD.KERNELS)
     peak = torch.cuda.max_memory_allocated()
+    sums = state_checksums({"params": params, "opt": opt_state})
     want = TRAIN_STEPS * TRAIN_PODS * n_leaves
     if counts != (want, want):
         raise AssertionError(f"K3 launches {counts}, the step predicts "
@@ -1540,8 +1575,9 @@ def train_phase():
           tokens_per_s_after_first=f"{tokens * (TRAIN_STEPS - 1) / sum(secs[1:]):.1f}",
           peak_gib=f"{peak / 2**30:.2f}", k3_launches=counts,
           k3_launches_predicted=want,
-          max_dequant_err_over_scale=f"{worst:.6f}")
-    return tcfg, params, opt_state, step_fn, counts
+          max_dequant_err_over_scale=f"{worst:.6f}",
+          state_checksum=checksum_digest(sums))
+    return tcfg, params, opt_state, step_fn, counts, sums
 
 
 def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
@@ -1569,6 +1605,343 @@ def train_split_phase(tcfg, params, opt_state, step_fn, steps=2):
     phase("train_split_ms", **{k: f"{v:.3f}" for k, v in ms.items()},
           total=f"{sum(ms.values()):.3f}", steps=steps)
     return ms
+
+
+# ------------------------------------- phase 8b: across ranks, restarts
+RESTART_SAVE_AT = 2                 # the checkpoint labels the next step
+RESTART_FAIL_AT = 3                 # attempt 0 fails before this step
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A world-1 NCCL process group on the card for one phase, its
+    rendezvous file under build/."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pg_", dir=ROOT / "build")
+    try:
+        dev = init_distributed(DEV, f"file://{tmp}/rendezvous")
+        try:
+            if dist.get_backend() != "nccl" or dev.type != "cuda":
+                raise AssertionError(f"process group on {dist.get_backend()}"
+                                     f" and {dev}, not NCCL on the card")
+            yield
+        finally:
+            shutdown_distributed()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def state_checksums(tree):
+    """{leaf name: (dtype, sum of its 32-bit words, position-weighted
+    sum)} computed on the card: equal trees give equal sums, and any
+    changed bit changes the first."""
+    out = {}
+    for name, t in CK._leaf_paths(tree):
+        words = t.detach().contiguous().view(-1)
+        words = (words.view(torch.int32) if words.element_size() == 4
+                 else words.view(torch.int16)).to(torch.int64)
+        weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        out[name] = (str(t.dtype), int(words.sum()),
+                     int((words * weight).sum()))
+        del words, weight
+    return out
+
+
+def checksum_digest(sums):
+    return hashlib.sha256(json.dumps(sums, sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def _tree_equal(a, b):
+    la, lb = CK._leaf_paths(a), CK._leaf_paths(b)
+    return [n for n, _ in la] == [n for n, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def train_reference_dist_phase():
+    """Reduced qwen3-1.7b (f32): one int8 step over 2 pods with the pod
+    sync through a world-1 NCCL `pod` group (the int8 payloads and
+    scales and the losses all-gathered) is bit-equal to the same step
+    with no group, from the same params and batch."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    opt = ModelOptions(remat="none")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-3), warmup_steps=0,
+                       total_steps=10, dp_compress="int8", num_pods=2)
+    batch = synthetic_batch(cfg, ShapeConfig("t", 64, 4, "train"),
+                            DataConfig(seed=0), 0, device=DEV)
+    out = {}
+    for where in ("no_group", "pod_group"):
+        params = _to(init_model(cfg, torch.Generator().manual_seed(0)), DEV)
+        step = make_train_step(cfg, opt, tcfg)
+        _zero_launches()
+        if where == "no_group":
+            params, st, m = step(params, adamw_init(params), batch, 0)
+        else:
+            with nccl_world(), use_mesh(build_mesh((1,), ("pod",))):
+                params, st, m = step(params, adamw_init(params), batch, 0)
+        torch.cuda.synchronize()
+        out[where] = ({"params": params, "opt": st}, float(m["loss"]),
+                      [k.launches for k in QD.KERNELS])
+    (a, loss_a, _), (b, loss_b, launches) = out["no_group"], out["pod_group"]
+    if not (_tree_equal(a, b) and loss_a == loss_b):
+        raise AssertionError("the step over the NCCL pod group differs from "
+                             "the step without a group")
+    if min(launches) <= 0:
+        raise AssertionError(f"the pod-group step did not launch K3: "
+                             f"{launches}")
+    phase("train_reference_dist", model="qwen3-1.7b-reduced f32",
+          backend="nccl", pod_group=1, pods=2, bit_equal=True, loss=loss_b,
+          leaves=len(CK._leaf_paths(a)), k3_launches=launches)
+    return launches
+
+
+def train_restart_phase(train_sums):
+    """Full-width qwen3-1.7b as [train] (same config, seed and batches),
+    the pod sync over a world-1 NCCL `pod` group, through
+    `run_with_restarts` and an async `CheckpointManager` (keep 1) in a
+    fresh directory under build/: attempt 0 runs steps 0-1, saves step
+    2, runs step 2 and fails before step 3; attempt 1 restores step 2
+    and runs steps 2-3. The final params, moments and count must equal
+    [train]'s after its 4 steps, leaf by leaf."""
+    cfg = get_config("qwen3-1.7b")
+    opt = ModelOptions(triangular_flash=True, remat="full")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4), warmup_steps=0,
+                       total_steps=TRAIN_STEPS, dp_compress="int8",
+                       num_pods=TRAIN_PODS, quant_block=QBLOCK)
+    dcfg = DataConfig(seed=0)
+    step_fn = make_train_step(cfg, opt, tcfg)
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_", dir=root))
+    rec = {"losses": [], "restore_s": [], "steps": []}
+    try:
+        mgr = CheckpointManager(CheckpointConfig(str(tmp), keep=1,
+                                                 async_save=True))
+        restore = mgr.restore
+
+        def timed_restore(template):
+            t0 = time.perf_counter()
+            out = restore(template)
+            torch.cuda.synchronize()
+            rec["restore_s"].append(time.perf_counter() - t0)
+            return out
+
+        mgr.restore = timed_restore
+
+        def make_state():
+            params = init_model(cfg, torch.Generator(device=DEV).manual_seed(0))
+            return {"params": params, "opt": adamw_init(params)}, 0
+
+        def run_from(state, start):
+            params, opt_state = state["params"], state["opt"]
+            for s in range(start, TRAIN_STEPS):
+                if s == RESTART_FAIL_AT and "saved" in rec \
+                        and "failed" not in rec:
+                    t0 = time.perf_counter()
+                    mgr.wait()
+                    rec["wait_s"] = time.perf_counter() - rec["save_t0"]
+                    rec["wait_blocked_s"] = time.perf_counter() - t0
+                    rec["failed"] = s
+                    raise RuntimeError(f"injected failure before step {s}")
+                batch = synthetic_batch(cfg, TRAIN_SHAPE, dcfg, s, device=DEV)
+                params, opt_state, m = step_fn(params, opt_state, batch, s)
+                rec["losses"].append(float(m["loss"]))
+                rec["steps"].append(s)
+                if s + 1 == RESTART_SAVE_AT and "saved" not in rec:
+                    rec["free_disk_gb"] = shutil.disk_usage(tmp).free / 1e9
+                    rec["save_t0"] = time.perf_counter()
+                    mgr.save(s + 1, {"params": params, "opt": opt_state})
+                    rec["save_blocked_s"] = time.perf_counter() - rec["save_t0"]
+                    rec["saved"] = s + 1
+            rec["sums"] = state_checksums({"params": params, "opt": opt_state})
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        with nccl_world(), use_mesh(build_mesh((1,), ("pod",))):
+            failures = run_with_restarts(make_state, run_from, mgr,
+                                         max_failures=1)
+        launches = tuple(k.launches for k in QD.KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (tmp / f"step_{RESTART_SAVE_AT}").iterdir())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures != 1 or rec["steps"] != [0, 1, 2, 2, 3]:
+        raise AssertionError(f"restart loop: {failures} failures, steps "
+                             f"{rec['steps']}")
+    if rec["sums"] != train_sums:
+        bad = [n for n in train_sums if rec["sums"].get(n) != train_sums[n]]
+        raise AssertionError(f"resumed state differs from [train]'s in "
+                             f"{len(bad)} leaves: {bad[:5]}")
+    n_leaves = len([n for n in train_sums if n.startswith("params_")])
+    want = len(rec["steps"]) * TRAIN_PODS * n_leaves
+    if launches != (want, want):
+        raise AssertionError(f"K3 launches {launches}, predicted {want}")
+    phase("train_restart", model="qwen3-1.7b", backend="nccl", pod_group=1,
+          steps=rec["steps"], failures=failures, saved_at=rec["saved"],
+          failed_before=rec["failed"], losses=rec["losses"],
+          state_equal_to_train=True, leaves=len(train_sums),
+          state_checksum=checksum_digest(rec["sums"]),
+          checkpoint_bytes=ckpt_bytes,
+          checkpoint_gb=f"{ckpt_bytes / 1e9:.3f}",
+          free_disk_gb_before_save=f"{rec['free_disk_gb']:.1f}",
+          save_blocked_s=f"{rec['save_blocked_s']:.3f}",
+          save_to_wait_return_s=f"{rec['wait_s']:.3f}",
+          wait_blocked_s=f"{rec['wait_blocked_s']:.3f}",
+          restore_s=[f"{t:.3f}" for t in rec["restore_s"]],
+          peak_gib=f"{peak / 2**30:.2f}", k3_launches=launches,
+          k3_launches_predicted=want)
+    return launches
+
+
+PIPE_M = 4                          # microbatches of 1 x 1024 tokens
+
+
+def pipeline_phase():
+    """GPipe over a world-1 NCCL `stage` group: qwen3-1.7b's 28 decoder
+    blocks at full width in bf16 as the one stage, 4 microbatches of
+    1 x 1024 tokens; bit-equal to the blocks applied to each microbatch
+    in turn."""
+    cfg = get_config("qwen3-1.7b")
+    opt = ModelOptions(triangular_flash=True, remat="none")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_model(cfg, gen, dtype=torch.bfloat16)
+    blocks = params["runs"][0]
+    del params
+    n_layers = tree_leaves(blocks)[0].shape[0]
+    x = torch.randn((PIPE_M, 1, 1024, cfg.d_model), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    positions = torch.arange(1024, device=DEV)
+
+    def stage_fn(p, xi):
+        return MODEL._run_scan(p, ATTN, xi, cfg, opt,
+                               window=MODEL._window(cfg, opt),
+                               positions=positions)[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0) / PIPE_M
+
+    with torch.inference_mode():
+        want, seq_ms = timed(lambda: torch.stack([stage_fn(blocks, x[i])
+                                                  for i in range(PIPE_M)]))
+        with nccl_world():
+            mesh = build_mesh((1,), ("stage",))
+            got, first_ms = timed(lambda: pipeline_forward(
+                mesh, stage_fn, blocks, x))
+            got, pipe_ms = timed(lambda: pipeline_forward(
+                mesh, stage_fn, blocks, x))
+        want, seq_ms = timed(lambda: torch.stack([stage_fn(blocks, x[i])
+                                                  for i in range(PIPE_M)]))
+    if not (torch.equal(got, want) and bool(got.isfinite().all())):
+        raise AssertionError("pipeline_forward differs from the blocks "
+                             "applied to each microbatch")
+    phase("pipeline", model="qwen3-1.7b", layers=n_layers, stages=1,
+          backend="nccl", microbatches=PIPE_M, tokens_per_microbatch=1024,
+          dtype="bfloat16", bit_equal=True,
+          ms_per_microbatch=f"{pipe_ms:.3f}",
+          first_call_ms_per_microbatch=f"{first_ms:.3f}",
+          sequential_ms_per_microbatch=f"{seq_ms:.3f}")
+
+
+MOE_TOKENS = 1024
+MOE_ROW_TOL = 2 ** -6               # of each row's largest |moe_dense|
+
+
+def kernel_ms(run, setup=None, reps=3):
+    """Summed device time of the CUDA kernels `run(setup())` launches,
+    from torch.profiler; the least of `reps` runs."""
+    best = math.inf
+    for _ in range(reps):
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run(arg)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = min(best, sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3)
+    return best
+
+
+def moe_ep_phase():
+    """One full-width olmoe-1b-7b MoE layer in bf16 on 1 x 1024 tokens
+    through `moe_ep` over a world-1 NCCL `model` group: forward and
+    backward finite; the tokens no expert dropped for capacity match
+    `moe_dense` within 2^-6 of each row's largest magnitude (each of the
+    k = 8 slot outputs is rounded to bf16 up to three times more on the
+    grouped path); device ms of both, forward and backward."""
+    cfg = get_config("olmoe-1b-7b")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    p = MOE.init_moe(gen, cfg, dtype=torch.bfloat16)
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    # at m = 1 every slot reaches the exchange (its capacity is >= the
+    # slots); a slot is dropped when its rank among its expert's slots,
+    # in slot order, reaches the per-expert capacity
+    k, e = cfg.experts_per_token, cfg.num_experts
+    _, idx, _ = MOE._route(p, cfg, x)
+    slots = idx.reshape(-1)
+    cs = MOE._round8(math.ceil(slots.numel() * cfg.moe_capacity_factor))
+    ce = MOE._round8(math.ceil(cs / e * cfg.moe_capacity_factor))
+    onehot = (slots[:, None] == torch.arange(e, device=DEV)).to(torch.int32)
+    rank = onehot.cumsum(0).gather(1, slots[:, None])[:, 0] - 1
+    dropped = (rank >= ce).reshape(MOE_TOKENS, k)
+    keep = ~dropped.any(1)
+
+    def fwd(fn):
+        leaves = {n: t.detach().requires_grad_(True) for n, t in p.items()}
+        xg = x.detach().requires_grad_(True)
+        y, aux = fn(leaves, xg)
+        return leaves, xg, y, aux
+
+    def bwd(out):
+        _, _, y, aux = out
+        ((y.float() ** 2).mean() + aux).backward()
+
+    with nccl_world():
+        mesh = build_mesh((1, 1), ("data", "model"))
+        with use_mesh(mesh):
+            ep = lambda q, xx: MOE.moe_ep(q, cfg, xx)         # noqa: E731
+            out_ep = fwd(ep)
+            bwd(out_ep)
+            ep_fwd = kernel_ms(lambda _: fwd(ep))
+            ep_bwd = kernel_ms(bwd, lambda: fwd(ep))
+        dense = lambda q, xx: MOE.moe_dense(q, cfg, xx)       # noqa: E731
+        out_d = fwd(dense)
+        bwd(out_d)
+        d_fwd = kernel_ms(lambda _: fwd(dense))
+        d_bwd = kernel_ms(bwd, lambda: fwd(dense))
+    leaves, xg, y, aux = out_ep
+    grads = [xg.grad] + [leaves[n].grad for n in sorted(leaves)]
+    if not (bool(y.isfinite().all()) and bool(aux.isfinite())
+            and all(g is not None and bool(g.isfinite().all())
+                    for g in grads)):
+        raise AssertionError("moe_ep forward or backward is not finite")
+    yd = out_d[2].detach().float()[0, keep]
+    ye = y.detach().float()[0, keep]
+    row_err = ((ye - yd).abs().amax(1) / yd.abs().amax(1).clamp(min=1e-30))
+    worst = float(row_err.max())
+    if worst > MOE_ROW_TOL:
+        raise AssertionError(f"moe_ep rows differ from moe_dense by {worst} "
+                             f"of their magnitude, above {MOE_ROW_TOL}")
+    phase("moe_ep", model="olmoe-1b-7b", backend="nccl", model_group=1,
+          experts=e, top_k=k, tokens=MOE_TOKENS, dtype="bfloat16",
+          expert_capacity=ce, dropped_slots=int(dropped.sum()),
+          dropped_tokens=int((~keep).sum()), finite=True,
+          row_err_over_max=f"{worst:.3e}", row_tol=MOE_ROW_TOL,
+          aux_ep=float(aux.detach()), aux_dense=float(out_d[3].detach()),
+          ep_fwd_device_ms=f"{ep_fwd:.3f}", ep_bwd_device_ms=f"{ep_bwd:.3f}",
+          dense_fwd_device_ms=f"{d_fwd:.3f}",
+          dense_bwd_device_ms=f"{d_bwd:.3f}")
 
 
 # ------------------------------------------------------ phase 9: simulator
@@ -2206,10 +2579,22 @@ def main():
     k3q, k3d = qdq_phase(gen)
     k4c, k4d = bdi_phase(gen, kcache)
     train_reference_phase()
-    tcfg, params, opt_state, step_fn, k3_counts = train_phase()
+    dist_counts = train_reference_dist_phase()
+    tcfg, params, opt_state, step_fn, k3_counts, sums = train_phase()
     k3q["launches"], k3d["launches"] = k3_counts
     train_split_phase(tcfg, params, opt_state, step_fn)
     del params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart_counts = train_restart_phase(sums)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, k3 in enumerate((k3q, k3d)):
+        k3["launches_by_path"] = {"train": k3_counts[i],
+                                  "train_reference_dist": dist_counts[i],
+                                  "train_restart": restart_counts[i]}
+    pipeline_phase()
+    moe_ep_phase()
     gc.collect()
     torch.cuda.empty_cache()
     sim_golden_phase()

@@ -8,12 +8,16 @@ labels, mask}`` layout, plus the stubbed frontends' ``frontend`` input
 ``audio_stub`` frames (B, T_enc, D)). Each batch is drawn from a
 ``torch.Generator`` seeded from ``(seed, step)``, so a batch is
 reproducible from its step alone (a resumed job re-reads the same
-stream) and is generated on the device it is used on. The numbers differ
+stream) and is generated on the device it is used on. The token draw
+runs in torch's deterministic mode: on the card `multinomial` otherwise
+sums its distribution with a scan whose float order changes from run
+to run, and with it the tokens drawn. The numbers differ
 from ``jax.random``'s; tests that compare the two packages feed the
 reference's batches through numpy.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -35,6 +39,18 @@ def _zipf_logits(vocab: int, alpha: float, device=None):
     return -alpha * torch.log(ranks)
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic mode for the enclosed ops, restored after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
 def _generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(
         (int(seed) << 32) + int(step))
@@ -50,8 +66,9 @@ def synthetic_batch(cfg: ArchConfig, shape: ShapeConfig, dcfg: DataConfig,
     b, s = shape.global_batch, shape.seq_len
     probs = torch.softmax(_zipf_logits(cfg.vocab_size, dcfg.zipf_alpha,
                                        device), dim=0)
-    tokens = torch.multinomial(probs, b * s, replacement=True,
-                               generator=gen).reshape(b, s)
+    with _deterministic():
+        tokens = torch.multinomial(probs, b * s, replacement=True,
+                                   generator=gen).reshape(b, s)
     # document boundaries: BOS (token 1) at deterministic offsets
     offs = torch.randint(0, dcfg.doc_len, (b, 1), generator=gen,
                          device=device)

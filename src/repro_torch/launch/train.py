@@ -3,7 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
       --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-      --batch 4 --seq 1024
+      --batch 4 --seq 1024 --ckpt-dir ckpt --ckpt-every 25
 
 Mirrors ``repro.launch.train``: random f32 parameters from a seed,
 synthetic batches (with the frontend stub's embeddings for whisper-base
@@ -12,8 +12,11 @@ detector around it. It runs on the card unless given ``--device cpu``.
 Remat is "full", or "none" with ``--reduced``, as the reference's
 launcher sets it; the train step is the reference's default (no pod
 split), and the int8 pod-gradient sync is driven through ``TrainConfig``
-(``dp_compress="int8"``, ``num_pods``). Checkpointing
-(``--ckpt-dir``) waits for the port of ``checkpoint/manager.py``.
+(``dp_compress="int8"``, ``num_pods``). Fault tolerance as the
+reference's: with ``--ckpt-dir`` it saves every ``--ckpt-every`` steps
+and at the end (written on a worker thread; an in-flight save is
+finished even when a step fails), and resumes from the latest
+checkpoint there.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.compute_plane import tree_leaves
@@ -41,6 +45,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=0,
@@ -49,9 +54,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu or cuda (default: the card)")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir needs checkpoint/manager.py, "
-                                  "which is not ported yet")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -75,23 +77,44 @@ def main(argv=None):
     print(f"[train] {cfg.name}: {n/1e6:.1f}M params, "
           f"batch={shape.global_batch} seq={shape.seq_len} device={device}")
 
+    start = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(CheckpointConfig(args.ckpt_dir))
+        restored, step, _ = mgr.restore({"params": params,
+                                         "opt": opt_state})
+        if restored is not None:
+            params, opt_state = restored["params"], restored["opt"]
+            start = step
+            print(f"[train] resumed from step {start}")
+        del restored
+
     step_fn = make_train_step(cfg, opt, tcfg)
     watchdog = StepWatchdog(deadline_s=3600.0)
     straggler = StragglerDetector()
-    for s in range(args.steps):
-        t0 = time.time()
-        batch = synthetic_batch(cfg, shape, dcfg, s, device)
-        params, opt_state, m = step_fn(params, opt_state, batch, s)
-        loss = float(m["loss"])           # waits for the step
-        dt = time.time() - t0
-        watchdog.check(dt, s)
-        if straggler.observe(dt):
-            print(f"[train] step {s}: straggler detected "
-                  f"(median {straggler.median:.2f}s)")
-        if s % args.log_every == 0 or s == args.steps - 1:
-            print(f"[train] step {s:5d} loss={loss:.4f} "
-                  f"lr={float(m['lr']):.2e} "
-                  f"gnorm={float(m['grad_norm']):.2f} {dt:.2f}s")
+    m = None
+    try:
+        for s in range(start, args.steps):
+            t0 = time.time()
+            batch = synthetic_batch(cfg, shape, dcfg, s, device)
+            params, opt_state, m = step_fn(params, opt_state, batch, s)
+            loss = float(m["loss"])           # waits for the step
+            dt = time.time() - t0
+            watchdog.check(dt, s)
+            if straggler.observe(dt):
+                print(f"[train] step {s}: straggler detected "
+                      f"(median {straggler.median:.2f}s)")
+            if s % args.log_every == 0 or s == args.steps - 1:
+                print(f"[train] step {s:5d} loss={loss:.4f} "
+                      f"lr={float(m['lr']):.2e} "
+                      f"gnorm={float(m['grad_norm']):.2f} {dt:.2f}s")
+            if mgr and (s + 1) % args.ckpt_every == 0:
+                mgr.save(s + 1, {"params": params, "opt": opt_state})
+        if mgr:
+            mgr.save(args.steps, {"params": params, "opt": opt_state})
+    finally:
+        if mgr:
+            mgr.wait()
     print("[train] done")
     return m
 

@@ -52,7 +52,7 @@ class ModelOptions:
     reads the MoE path, the attention tiling, the rematerialisation
     policy, the SSD chunk, the sliding-window override and the ring KV
     cache."""
-    moe_impl: str = "dense"            # "dense" | "ep" (raises)
+    moe_impl: str = "dense"            # "dense" | "ep" (needs a mesh)
     triangular_flash: bool = True      # skip fully-masked causal KV blocks
     flash_threshold: int = 2048
     remat: str = "dots"                # "none" | "full" | "dots"

@@ -1,1 +1,4 @@
 """Optimizer and learning-rate schedule of the train step."""
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     clip_by_global_norm)
+from repro_torch.optim.schedule import cosine_schedule

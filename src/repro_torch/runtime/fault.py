@@ -3,16 +3,22 @@ plane).
 
 Copied from ``repro.runtime.fault`` (pure Python): `StepWatchdog` bounds
 per-step wall time, `StragglerDetector` flags persistent outliers
-against a robust step-time median, and `LinkHealthMonitor` watches the
-fabric's per-module link health during paged serving. The restart loop
-(`run_with_restarts`) is not ported yet: it needs the checkpoint
-manager.
+against a robust step-time median, `LinkHealthMonitor` watches the
+fabric's per-module link health during paged serving, and
+`run_with_restarts` rebuilds the state, restores the latest checkpoint
+of a ``checkpoint.CheckpointManager`` and resumes after a failure. It
+drops every reference to a failed attempt's state and empties the CUDA
+cache before it rebuilds: at full width two attempts' states do not fit
+on one card together.
 """
 from __future__ import annotations
 
+import gc
 import logging
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
+
+import torch
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -124,3 +130,40 @@ class LinkHealthMonitor:
     @property
     def flagged(self) -> List[int]:
         return sorted(self._flagged)
+
+
+def run_with_restarts(make_state: Callable[[], tuple],
+                      run_from: Callable[[object, int], None],
+                      ckpt_mgr,
+                      max_failures: int = 3,
+                      fault_hook: Optional[Callable[[int], None]] = None):
+    """Restart loop: (re)build state, restore latest checkpoint, run.
+
+    `make_state()` -> (template_state, start_step);
+    `run_from(state, step)` runs until completion or raises.
+    `fault_hook(attempt)` lets tests inject failures deterministically.
+    Returns the number of restarts consumed.
+    """
+    failures = 0
+    while True:
+        state, start = make_state()
+        restored, step, _ = ckpt_mgr.restore(state)
+        if restored is not None:
+            state = restored            # the template's memory goes now
+        del restored
+        step = step if step is not None else start
+        try:
+            if fault_hook is not None:
+                fault_hook(failures)
+            run_from(state, step)
+            return failures
+        except Exception as e:  # noqa: BLE001 — restart-able by design
+            failures += 1
+            log.warning("failure %d/%d at step >=%s: %r", failures,
+                        max_failures, step, e)
+            if failures > max_failures:
+                raise
+        del state
+        gc.collect()                    # the failed attempt's frames
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()

@@ -9,18 +9,23 @@ framework-level DaeMon experiment):
   the pod link: the batch is split pod-major, each pod's gradients are
   computed and block-int8 quantized per leaf (blocks never straddle
   pods), exchanged as int8 plus f32 scales, then dequantized and
-  averaged over pods. On a CUDA device quantize and dequantize are the
-  hand-written kernels of ``csrc/qdq_int8.cu`` (through
-  ``core.compression`` and ``kernels.ops``).
+  averaged over pods in pod order. On a CUDA device quantize and
+  dequantize are the hand-written kernels of ``csrc/qdq_int8.cu``
+  (through ``core.compression`` and ``kernels.ops``).
 
-The port has no device mesh yet. Without one, the reference's
-replication constraint (its int8 all-gather over the pod axis) is the
-identity (``mesh_rules.constrain`` is a no-op), so on one card the
-exchange is the identity here too; the pods are computed one after the
-other. Two things differ from the reference for memory, not for values:
-pod p's gradients are quantized as soon as they exist, so only one
-pod's f32 gradients are alive at a time, and the optimizer updates the
-parameters and moments in place (see ``optim.adamw``).
+The exchange is the reference's int8 all-gather over the pod axis.
+Under an active mesh (``runtime.mesh_rules.use_mesh``) with a `pod`
+axis of size G, rank g computes pods [g P/G, (g+1) P/G) of the P pods
+and all-gathers each leaf's int8 payload and scales, and the per-pod
+losses, over the pod axis's process group; every rank then dequantizes
+every pod and applies the same update, bit-equal to the one-process
+step. Without such a mesh one process computes every pod and the
+exchange is the identity. Two things differ from the reference for
+memory, not for values: pod p's gradients are quantized as soon as
+they exist, so only one pod's f32 gradients are alive at a time, and
+the optimizer updates the parameters and moments in place (see
+``optim.adamw``). With ``dp_compress="none"`` every rank computes the
+whole batch.
 
 `train_step` takes an optional `on_stage(name)` callback, called after
 each stage ("forward_backward", "pod_sync", "optimizer"); a caller that
@@ -40,6 +45,9 @@ from repro_torch.core.compute_plane import (tree_leaves, tree_map,
 from repro_torch.models.model import ModelOptions, loss_fn
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.runtime.mesh_rules import (active_mesh, axis_group,
+                                            axis_index, axis_size,
+                                            mesh_shape)
 
 F32 = torch.float32
 DP_COMPRESS = ("none", "int8")
@@ -127,25 +135,55 @@ def _quantize_pod(grads, block: int):
     return [quantize_block_int8(g, block) for g in tree_leaves(grads)]
 
 
-def _dequantize_mean(pods_q, like, block: int):
+def _pod_axis():
+    """(process group, size G, this rank's index) of the active mesh's
+    `pod` axis; (None, 1, 0) without one."""
+    mesh = active_mesh()
+    if mesh is None or "pod" not in mesh_shape(mesh):
+        return None, 1, 0
+    return (axis_group(mesh, "pod"), axis_size(mesh, "pod"),
+            axis_index(mesh, "pod"))
+
+
+def _gather_pods(local, group, size):
+    """One tensor per pod of this rank -> one per pod of every rank, in
+    pod order (rank-major): the all-gather over `group`, the identity
+    without one."""
+    if group is None:
+        return list(local)
+    import torch.distributed as dist
+    out = [None] * (len(local) * size)
+    for j, x in enumerate(local):
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        for r, part in enumerate(parts):
+            out[r * len(local) + j] = part
+    return out
+
+
+def _dequantize_mean(pods_q, like, block: int, group=None, size: int = 1):
     """Mean over pods of the dequantized per-leaf gradients, as a tree
-    shaped like `like`."""
+    shaped like `like`. `pods_q` holds this rank's pods; with a `group`
+    each leaf's int8 payload and scales are first gathered from every
+    rank, one leaf at a time."""
     out = []
     for i, leaf in enumerate(tree_leaves(like)):
+        qs = _gather_pods([pod[i][0] for pod in pods_q], group, size)
+        scales = _gather_pods([pod[i][1] for pod in pods_q], group, size)
         total = None
-        for pod in pods_q:
-            q, scale = pod[i]
+        for q, scale in zip(qs, scales):
             deq = dequantize_block_int8(q, scale, tuple(leaf.shape), block)
             total = deq if total is None else total + deq
-        out.append(total / len(pods_q))
+        del qs, scales
+        out.append(total / (len(pods_q) * size))
     return tree_unflatten(like, out)
 
 
 def _compressed_pod_sync(grads_stack, num_pods: int, block: int):
-    """grads_stack: tree with a leading (num_pods,) axis.
+    """grads_stack: tree with a leading (num_pods,) axis, every pod on
+    this process.
 
-    int8-quantize each pod's partial gradients per leaf, exchange (the
-    identity without a mesh, see the module docstring), dequantize and
+    int8-quantize each pod's partial gradients per leaf, dequantize and
     average over pods."""
     pods = [tree_map(lambda g: g[p], grads_stack) for p in range(num_pods)]
     return _dequantize_mean([_quantize_pod(g, block) for g in pods],
@@ -167,17 +205,25 @@ def make_train_step(cfg: ArchConfig, opt: ModelOptions, tcfg: TrainConfig):
                              warmup_steps=tcfg.warmup_steps,
                              total_steps=tcfg.total_steps)
         if tcfg.dp_compress == "int8" and tcfg.num_pods > 1:
+            group, size, rank = _pod_axis()
+            if tcfg.num_pods % size:
+                raise ValueError(f"{tcfg.num_pods} pods do not split over a "
+                                 f"pod axis of {size}")
+            per = tcfg.num_pods // size
+            mine = split_pods(batch, tcfg.num_pods)[rank * per:
+                                                    (rank + 1) * per]
             pods_q, losses = [], []
-            for pod_batch in split_pods(batch, tcfg.num_pods):
+            for pod_batch in mine:
                 grads, loss = grads_of(params, pod_batch)
                 mark("forward_backward")
                 pods_q.append(_quantize_pod(grads, tcfg.quant_block))
                 del grads
                 mark("pod_sync")
                 losses.append(loss)
-            grads = _dequantize_mean(pods_q, params, tcfg.quant_block)
+            grads = _dequantize_mean(pods_q, params, tcfg.quant_block,
+                                     group, size)
             del pods_q
-            loss = torch.stack(losses).mean()
+            loss = torch.stack(_gather_pods(losses, group, size)).mean()
             mark("pod_sync")
         else:
             grads, loss = grads_of(params, batch)

@@ -97,6 +97,8 @@ def test_moe_dense_combine_math():
 
 
 def test_moe_ep_raises_and_names_the_queue():
+    """Expert parallelism is ported (tests/test_torch_dist.py); without
+    an active mesh with a `model` axis it raises, naming the axis."""
     _, cfg, _, tp, x = _setup("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="'model' axis"):
         TM.moe(tp, cfg, torch.from_numpy(x), impl="ep")

@@ -272,11 +272,12 @@ def test_synthetic_batch_deterministic_in_range_with_bos():
     assert counts[0] > counts[100]        # Zipf: rank 1 beats rank 101
 
 
-def test_launcher_runs_on_cpu(capsys):
+def test_launcher_runs_on_cpu(capsys, tmp_path):
     m = launch_train.main(["--reduced", "--device", "cpu", "--steps", "3"])
     assert np.isfinite(float(m["loss"])) and np.isfinite(
         float(m["grad_norm"]))
     assert "[train] done" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        launch_train.main(["--reduced", "--device", "cpu", "--ckpt-dir",
-                           "unused"])
+    launch_train.main(["--reduced", "--device", "cpu", "--steps", "3",
+                       "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2",
+                                                          "step_3"]

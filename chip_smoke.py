@@ -6,14 +6,19 @@ Builds the port's CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a,
 into build/repro_torch/), holds each kernel bit for bit against its
 plain PyTorch version, drives the store through every stepper (batched,
 replicated at C = 1, 2, 3, single-sequence, and the chain comparator),
-the card against the CPU or the fused path, then serves: reduced
+the card against the CPU or the fused path, and through the mesh plane's
+`step_replicated_sharded` on a world-1 NCCL group, bit-equal to the
+unsharded step (`[store_drive_mesh]`), then serves: reduced
 qwen3-1.7b card against CPU (paged, replicated, and at telemetry level
 "trace" with a link-health monitor), full-width qwen3-1.7b through
 `serve_batch_paged` and through `serve_replicated` (2 replicas x 8
-tenants) with the DaeMon KV store in the loop, and one-pass `prefill`
-against the token-by-token decode. The other model families follow:
-reduced olmoe-1b-7b, zamba2-2.7b (on an 8-token ring KV cache),
-xlstm-125m, whisper-base and internvl2-26b card against CPU, the two
+tenants) with the DaeMon KV store in the loop, the latter again through
+`serve_replicated(mesh=)` on a world-1 NCCL mesh, tokens and ledger
+bit-equal, the fabric merge timed on its own (`[serve_replicated_mesh]`),
+and one-pass `prefill` against the token-by-token decode. The other
+model families follow: reduced olmoe-1b-7b, zamba2-2.7b (on an 8-token
+ring KV cache), xlstm-125m, whisper-base and internvl2-26b card against
+CPU, the two
 frontend archs also through a one-pass prefill with their stub's input
 (`[families_reference]`); then each of those, and qwen3-moe-30b-a3b last
 (61 GB of weights), at full width through `serve_batch_paged`
@@ -41,8 +46,11 @@ runs the request-level simulator (`repro_torch.sim`): the seed golden
 tests/golden/seed_movement_golden.json (`[sim_golden]`), every lattice
 axis (schemes x link-profile nets x active compute units x policies,
 telemetry on) on the card against the CPU with two-endpoint byte
-conservation (`[sim_axes]`), and the paper's fig-8 lattice at r = 6000
-with its first 200 requests under sync-debug mode "error" and 50 under
+conservation (`[sim_axes]`), the same lattice through
+`simulate_lattice_sharded` on a world-1 NCCL mesh, bit-equal to
+`[sim_axes]`' card result (`[mesh_lattice]`), and the paper's fig-8
+lattice at r = 6000 with its first 200 requests under sync-debug mode
+"error" and 50 under
 torch.profiler (`[sim_fig8]`); the simulator reaches no hand kernel, and
 each phase checks that none was launched. It checks every result and
 imports nothing of JAX or of the reference package.
@@ -56,8 +64,9 @@ sequences).
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches
 on its path (serving for the store's kernels, per path in
-`launches_by_path`, the family serve paths included; training for the
-quantizer, with the new across-rank paths in its `launches_by_path`;
+`launches_by_path`, the family serve paths and the mesh paths included;
+training for the quantizer, with the across-rank paths in its
+`launches_by_path`;
 its own phase for BDI, which no path reaches), its time
 against its bound, the plain version's time and the library call's; and
 last `{"ok": true, "device": {...}}`. Any failure raises and exits
@@ -117,7 +126,8 @@ from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
 from repro_torch.launch.mesh import (build_mesh,  # noqa: E402
-                                     init_distributed, shutdown_distributed)
+                                     init_distributed, make_data_mesh,
+                                     shutdown_distributed)
 from repro_torch.models import model as MODEL  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
@@ -129,6 +139,7 @@ from repro_torch.models.model import (ModelOptions, decode_step,  # noqa
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.runtime.fault import (LinkHealthMonitor,  # noqa: E402
                                        run_with_restarts)
+from repro_torch.runtime import mesh_plane as MP  # noqa: E402
 from repro_torch.runtime.mesh_rules import use_mesh  # noqa: E402
 from repro_torch.runtime.pipeline import pipeline_forward  # noqa: E402
 from repro_torch.runtime.obs import counter_events, trace_export  # noqa
@@ -866,6 +877,50 @@ def drive_replicated_phase():
           equals_step_fetch_batch=True, nic_untouched=True)
 
 
+def drive_mesh_phase():
+    """DRIVE_STEPS of step_replicated_sharded on a world-1 NCCL mesh at
+    C = 2, B = 4, against step_fetch_replicated on the card from the
+    same requests: every state leaf and output bit-equal every step (the
+    merge at world 1 is base + (local - base), one all_gather), and the
+    gathered ledger equal. K1 and K2 launches are counted over the
+    sharded steps only. Returns those counts."""
+    cfg = DS.KVStoreConfig(**DRIVE_STORE)
+    c, b = 2, 4
+    rng = np.random.default_rng(5)
+    remote = drive_remote(rng).to(DEV)
+    reqs = [tuple(torch.from_numpy(x).to(DEV) for x in
+                  drive_requests(rng, (c, b, DRIVE_R)))
+            for _ in range(DRIVE_STEPS)]
+    counts = {"paged_gather": 0, "fused_residency_step": 0}
+    with nccl_world():
+        mesh = make_data_mesh()
+        st = MP.shard_replicated_state(
+            DS.init_kv_store_replicated(cfg, c, b, device=DEV), mesh)
+        ref = DS.init_kv_store_replicated(cfg, c, b, device=DEV)
+        for step, (need, offs, wr) in enumerate(reqs):
+            ref, *out_r = DS.step_fetch_replicated(ref, cfg, remote, remote,
+                                                   need, offs, wr)
+            PG.KERNEL.launches = 0
+            RF.KERNEL.launches = 0
+            st, *out_s = MP.step_replicated_sharded(st, cfg, mesh, remote,
+                                                    remote, need, offs, wr)
+            counts["paged_gather"] += PG.KERNEL.launches
+            counts["fused_residency_step"] += RF.KERNEL.launches
+            compare_states(st, ref, f"mesh step {step}", exact=True)
+            compare_states(out_s, out_r, f"mesh step {step} out",
+                           exact=True)
+        led = DS.ledger(MP.gather_replicated_state(st, mesh))
+    if led != DS.ledger(ref):
+        raise AssertionError("the sharded ledger differs from the "
+                             "unsharded one")
+    if min(counts.values()) != DRIVE_STEPS:
+        raise AssertionError(f"launches {counts}, expected {DRIVE_STEPS}")
+    phase("store_drive_mesh", steps=DRIVE_STEPS, replicas=c, batch=b,
+          backend="nccl", world=1, bit_equal=True, launches=counts,
+          wire_bytes=led["wire_bytes"], dirty_evicts=led["dirty_evicts"])
+    return counts
+
+
 def drive_single_phase():
     """48 steps of step_fetch (one sequence), card against CPU."""
     cfg = DS.KVStoreConfig(**DRIVE_STORE)
@@ -1171,7 +1226,78 @@ def serve_replicated_phase(cfg, params, prompts):
           peak_gib=f"{peak / 2**30:.2f}", launches=counts,
           k1_blocks_per_seq=geo.blocks, k1_grid=geo.grid,
           unit_bytes=led["unit_bytes"], wire_bytes=led["wire_bytes"])
-    return counts, cap.inputs
+    return counts, cap.inputs, (tokens, led, secs)
+
+
+class MergeTimer:
+    """Times every `fabric.reduce_deltas` the mesh plane calls (host
+    clock, a synchronize before and after): the merge's collective on
+    its own."""
+
+    def __enter__(self):
+        self._orig = FAB.reduce_deltas
+        self.secs = []
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+        FAB.reduce_deltas = timed
+        return self
+
+    def __exit__(self, *exc):
+        FAB.reduce_deltas = self._orig
+
+
+def serve_replicated_mesh_phase(cfg, params, prompts, rep_result):
+    """[serve_replicated]'s cell through `serve_replicated(mesh=)` on a
+    world-1 NCCL mesh: full-width qwen3-1.7b, C = 2 x B = 8, 32 + 32
+    tokens. Tokens and ledger bit-equal to [serve_replicated]'s; one K1
+    and one K2 launch per step; ms per step (NCCL's communicator set up
+    before the clock starts), and the fabric merge (one all_gather per
+    step) timed on its own. Returns the launch counts."""
+    want_tokens, want_led, want_secs = rep_result
+    store = DS.KVStoreConfig(**SERVE_STORE)
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW)
+    steps = SERVE_PROMPT + SERVE_NEW
+    gc.collect()
+    torch.cuda.empty_cache()
+    with nccl_world(), MergeTimer() as merge:
+        mesh = make_data_mesh()
+        MP.gather_rows(torch.zeros(1, device=DEV), mesh)  # NCCL's set-up
+        torch.cuda.synchronize()
+        PG.KERNEL.launches = 0
+        RF.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
+                                       REP_C, SERVE_PAGED, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"paged_gather": PG.KERNEL.launches,
+                  "fused_residency_step": RF.KERNEL.launches}
+    if not torch.equal(tokens, want_tokens):
+        raise AssertionError("mesh tokens differ from [serve_replicated]'s")
+    if led != want_led:
+        raise AssertionError("mesh ledger differs from [serve_replicated]'s")
+    if counts["fused_residency_step"] != steps or \
+            counts["paged_gather"] != steps:
+        raise AssertionError(f"launches {counts}, expected {steps} each")
+    if len(merge.secs) != steps:
+        raise AssertionError(f"{len(merge.secs)} merges for {steps} steps")
+    merge_ms = 1e3 * float(np.mean(merge.secs))
+    step_ms = 1e3 * secs / steps
+    phase("serve_replicated_mesh", model="qwen3-1.7b", replicas=REP_C,
+          batch=SERVE_B, backend="nccl", world=1, prompt=SERVE_PROMPT,
+          new=SERVE_NEW, tokens_equal=True, ledger_equal=True,
+          seconds=f"{secs:.3f}", ms_per_step=f"{step_ms:.3f}",
+          unsharded_ms_per_step=f"{1e3 * want_secs / steps:.3f}",
+          merge_ms_per_step=f"{merge_ms:.4f}",
+          merge_max_ms=f"{1e3 * max(merge.secs):.3f}",
+          merge_share=f"{merge_ms / step_ms:.5f}", launches=counts)
+    return counts
 
 
 def replicated_split_phase(cfg, params, prompts, steps=12, timed=8):
@@ -2384,6 +2510,21 @@ def _one_bin_apart(a, b, cfg):
     return a > 0 and b > 0 and abs(abs(math.log(a / b)) - step) < 1e-3 * step
 
 
+def axes_lattice():
+    """[sim_axes]' lattice: (workload, trace, SimConfig, nets, the axes'
+    keyword arguments)."""
+    w = WORKLOADS["pr"]
+    tr = generate_trace(w, AXES_R, seed=1)
+    cfg = SimConfig(num_cu=4, num_mc=2)
+    sched = make_link_schedule("burst", float(np.sum(tr.gap)) * 2.0,
+                               cfg.num_mc)
+    nets = _sim_nets(((100.0, 4.0), (400.0, 8.0)), num_mc=cfg.num_mc,
+                     schedule=sched)
+    return w, tr, cfg, nets, dict(
+        active_cus=(1, 2, 4), policies=POLICIES,
+        telemetry_cfg=TelemetryConfig(level="histogram"))
+
+
 def sim_axes_phase():
     """Every lattice axis on the card against the port on the CPU:
     daemon, daemon-adaptive, bp, remote x 2 nets under a `burst` link
@@ -2392,15 +2533,8 @@ def sim_axes_phase():
     metrics bit-equal or within the golden tolerance, percentiles equal
     or one bin apart. Then two-endpoint byte conservation on the card's
     final states at C = 1 and 4, whose every leaf equals the CPU's."""
-    w = WORKLOADS["pr"]
-    tr = generate_trace(w, AXES_R, seed=1)
-    horizon = float(np.sum(tr.gap)) * 2.0
-    cfg = SimConfig(num_cu=4, num_mc=2)
-    sched = make_link_schedule("burst", horizon, cfg.num_mc)
-    nets = _sim_nets(((100.0, 4.0), (400.0, 8.0)), num_mc=cfg.num_mc,
-                     schedule=sched)
-    tel = TelemetryConfig(level="histogram")
-    kw = dict(active_cus=(1, 2, 4), policies=POLICIES, telemetry_cfg=tel)
+    w, tr, cfg, nets, kw = axes_lattice()
+    tel = kw["telemetry_cfg"]
     schemes = [SCHEMES[s] for s in AXES_SCHEMES]
     _zero_launches()
     torch.cuda.synchronize()
@@ -2470,6 +2604,46 @@ def sim_axes_phase():
           host_ms_per_request=f"{1e3 * secs / AXES_R:.3f}",
           bytes_stats_module_nic=",".join(ledgers),
           run_trace_card_equals_cpu=True, hand_kernel_launches=0)
+    return card
+
+
+def mesh_lattice_phase(card):
+    """[sim_axes]' lattice through simulate_lattice_sharded on a
+    world-1 NCCL mesh: every cell bit-equal (NaN equal to NaN) to
+    [sim_axes]' card result, and no hand kernel launched."""
+    w, tr, cfg, nets, kw = axes_lattice()
+    _zero_launches()
+    with nccl_world():
+        mesh = make_data_mesh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = MP.simulate_lattice_sharded(
+            [SCHEMES[s] for s in AXES_SCHEMES], cfg, tr, nets, w.comp_ratio,
+            mesh=mesh, device=DEV, **kw)
+        secs = time.perf_counter() - t0
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the simulator launched a kernel: {launches}")
+    cells = 0
+    for i in range(len(AXES_SCHEMES)):
+        for j in range(len(nets)):
+            for c in range(3):
+                for p in range(len(POLICIES)):
+                    a, b = got[i][j][c][p], card[i][j][c][p]
+                    if set(a) != set(b):
+                        raise AssertionError(f"cell {i},{j},{c},{p}: keys")
+                    for key, v in b.items():
+                        if not (a[key] == v or (math.isnan(a[key])
+                                                and math.isnan(v))):
+                            raise AssertionError(
+                                f"cell {i},{j},{c},{p} {key}: {a[key]} "
+                                f"!= {v}")
+                    cells += 1
+    phase("mesh_lattice", backend="nccl", world=1, cells=cells,
+          requests=AXES_R, bit_equal_sim_axes=True, seconds=f"{secs:.3f}",
+          requests_per_s=f"{AXES_R / secs:.2f}",
+          host_ms_per_request=f"{1e3 * secs / AXES_R:.3f}",
+          hand_kernel_launches=0)
 
 
 def sim_fig8_phase():
@@ -2535,6 +2709,7 @@ def main():
     k1_err = residency_phase(gen)
     drive_phase()
     drive_replicated_phase()
+    mesh_counts = drive_mesh_phase()
     drive_single_phase()
     chain_k2 = chain_phase()
     reference_phase()
@@ -2547,9 +2722,13 @@ def main():
     k1 = k1_phase(k1_inputs, gen, k1_err)
     del k1_inputs
     prefill_phase(cfg, params, prompts)
-    rep_counts, rep_inputs = serve_replicated_phase(cfg, params, prompts)
+    rep_counts, rep_inputs, rep_result = serve_replicated_phase(
+        cfg, params, prompts)
     t = k1_timing(rep_inputs, "fused_residency_step_replicated_shape")
     del rep_inputs
+    rep_mesh_counts = serve_replicated_mesh_phase(cfg, params, prompts,
+                                                  rep_result)
+    del rep_result
     k1["max_abs_err"] = max(k1["max_abs_err"], t.pop("max_abs_err"))
     k1["replicated_shape"] = {"sequences": REP_C * SERVE_B, **t}
     replicated_split_phase(cfg, params, prompts)
@@ -2557,10 +2736,14 @@ def main():
     k2["launches"] = counts["paged_gather"]
     k1["launches_by_path"] = {
         "serve_batch_paged": counts["fused_residency_step"],
-        "serve_replicated": rep_counts["fused_residency_step"]}
+        "serve_replicated": rep_counts["fused_residency_step"],
+        "serve_replicated_mesh": rep_mesh_counts["fused_residency_step"],
+        "store_drive_mesh": mesh_counts["fused_residency_step"]}
     k2["launches_by_path"] = {
         "serve_batch_paged": counts["paged_gather"],
         "serve_replicated": rep_counts["paged_gather"],
+        "serve_replicated_mesh": rep_mesh_counts["paged_gather"],
+        "store_drive_mesh": mesh_counts["paged_gather"],
         "store_chain": chain_k2}
     del params                       # free the serve phases before training
     gc.collect()
@@ -2598,7 +2781,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sim_golden_phase()
-    sim_axes_phase()
+    mesh_lattice_phase(sim_axes_phase())
     sim_fig8_phase()
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3q, k3d, k4c, k4d]}))

@@ -12,10 +12,14 @@ store's static config) picks its branch on the host and adds no launch;
 a bool tensor (the simulator's scheme flag, one per lattice point) takes
 a `torch.where` path with the reference's arithmetic. The type of the
 argument picks the path, as a constant does under `jit`.
+
+`Channel` / `PartitionedLink` are the scalar API of standalone analyses
+and the property tests: one busy-until clock per channel, its inputs
+(Python numbers or tensors) taken as f32 as the reference takes them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -94,3 +98,69 @@ def serve_dual(line_busy, page_busy, *, partition, ratio, bw,
                                 bw * page_share, gate=page_gate)
     new_line = pick(lb, line_busy)
     return new_line, pb, line_done, page_done
+
+
+# ------------------------------------------------------ scalar channel API
+class Channel(NamedTuple):
+    busy_until: torch.Tensor      # 0-d f32 (ns)
+
+
+def init_channel(device=None) -> Channel:
+    return Channel(busy_until=torch.zeros((), dtype=F32, device=device))
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def transmit(ch: Channel, t_ready, nbytes, bw_bytes_per_ns
+             ) -> Tuple[Channel, torch.Tensor]:
+    """Serialize `nbytes` on the channel; returns (channel, done_time)."""
+    busy = ch.busy_until
+    new_busy, done = occupy_busy(busy, _f32(t_ready, busy),
+                                 _f32(nbytes, busy),
+                                 _f32(bw_bytes_per_ns, busy))
+    return Channel(busy_until=new_busy), done
+
+
+def occupy(ch: Channel, t_ready, nbytes, bw_bytes_per_ns, *, gate=True
+           ) -> Tuple[Channel, torch.Tensor]:
+    """transmit() that can be disabled (gate=False -> state unchanged,
+    done = t_ready)."""
+    busy = ch.busy_until
+    t_ready = _f32(t_ready, busy)
+    new_busy, done = occupy_busy(busy, t_ready, _f32(nbytes, busy),
+                                 _f32(bw_bytes_per_ns, busy), gate=gate)
+    gate = torch.as_tensor(gate, device=busy.device)
+    return Channel(busy_until=new_busy), torch.where(gate, done, t_ready)
+
+
+class PartitionedLink(NamedTuple):
+    """Two virtual channels over one physical link."""
+    line: Channel
+    page: Channel
+
+
+def init_link(device=None) -> PartitionedLink:
+    return PartitionedLink(line=init_channel(device),
+                           page=init_channel(device))
+
+
+def line_bw(bw, ratio):
+    return bw * ratio
+
+
+def page_bw(bw, ratio):
+    return bw * (1.0 - ratio)
+
+
+def send_line(link: PartitionedLink, t, nbytes, bw, ratio, *, gate=True
+              ) -> Tuple[PartitionedLink, torch.Tensor]:
+    ch, done = occupy(link.line, t, nbytes, line_bw(bw, ratio), gate=gate)
+    return link._replace(line=ch), done
+
+
+def send_page(link: PartitionedLink, t, nbytes, bw, ratio, *, gate=True
+              ) -> Tuple[PartitionedLink, torch.Tensor]:
+    ch, done = occupy(link.page, t, nbytes, page_bw(bw, ratio), gate=gate)
+    return link._replace(page=ch), done

@@ -17,8 +17,8 @@ leading batch axes. The per-request transitions (`select_granularity`,
 `schedule_page`, `schedule_line`) take one sequence's (P,)/(S,) buffers
 and 0-d tensor scalars; the store calls them inside its scheduling loop.
 Indices stay tensors (`_at`/`_put`), so no transition reads a value back
-to the host. The §4.3 dirty unit (`note_dirty_eviction` in the
-reference) runs vectorised over a step's evictions in
+to the host. The §4.3 dirty unit is `note_dirty_eviction` for one
+eviction; the store runs it vectorised over a step's evictions in
 `daemon_store._writebacks`.
 """
 from __future__ import annotations
@@ -209,3 +209,28 @@ def retire_arrivals(st: EngineState, now,
         sb_key=torch.where(sb_done, -1, st.sb_key),
         sb_arrival=torch.where(sb_done, never, st.sb_arrival),
     )
+
+
+# ------------------------------------------------------------ dirty unit
+def note_dirty_eviction(st: EngineState, page_id, p: DaemonParams
+                        ) -> Tuple[EngineState, torch.Tensor]:
+    """§4.3: a dirty line evicted while its page is in flight is
+    buffered; past the threshold the page entry is throttled (re-request
+    on arrival). Returns (state, buffered?): buffered=False means write
+    straight to remote memory. As the reference does, a page that is not
+    in flight resets entry 0's dirty counter (`find`'s index of an
+    all-False match). The store applies this vectorised in
+    `daemon_store._writebacks`."""
+    found, idx = find(st.page_key, page_id)
+    cnt = torch.where(found, _at(st.page_dirty, idx) + 1,
+                      _const(0, st.page_dirty))
+    over = cnt > p.dirty_flush_threshold
+    new_state = torch.where(found & over, _const(THROTTLED, st.page_state),
+                            _at(st.page_state, idx))
+    st = st._replace(
+        page_dirty=_put(st.page_dirty, idx,
+                        torch.where(found & ~over, cnt,
+                                    _const(0, st.page_dirty))),
+        page_state=_put(st.page_state, idx, new_state),
+    )
+    return st, found & ~over

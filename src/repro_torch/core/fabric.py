@@ -9,8 +9,8 @@ wire-byte ledgers. Channel arithmetic delegates to ``bandwidth``.
 
 Module indices `mc` are 0-d int tensors; every read and update goes
 through `gather`/`scatter`, so a transition never reads a value back to
-the host. The multi-device merge (``reduce_deltas``) is not ported yet:
-it needs ``torch.distributed``.
+the host. ``reduce_deltas`` merges the ranks' views of the shared bank
+over a ``torch.distributed`` process group.
 """
 from __future__ import annotations
 
@@ -181,6 +181,54 @@ def backlog(fab: FabricState, mc, now) -> Tuple[torch.Tensor, torch.Tensor]:
 def total_bytes(fab: FabricState) -> torch.Tensor:
     """Total wire bytes across every module and channel."""
     return fab.line_bytes.sum() + fab.page_bytes.sum() + fab.wb_bytes.sum()
+
+
+# The FabricState leaves that are accumulated state of the shared memory
+# modules (channel clocks, byte ledgers, controller state): every leaf
+# but the link model, which is read-only input.
+_SHARED_FIELDS = ("line_busy", "page_busy", "wb_busy",
+                  "line_bytes", "page_bytes", "wb_bytes",
+                  "ratio", "line_rate", "page_rate")
+
+
+def reduce_deltas(base: FabricState, local: FabricState,
+                  group=None) -> FabricState:
+    """Merge the ranks' views of the SHARED module channel bank.
+
+    Every rank of `group` (default: the default process group) stepped
+    its own copy of the shared bank from the common snapshot `base`;
+    each contributed ``local - base`` (busy time it enqueued, bytes it
+    moved, controller drift), and the merged bank is ``base + sum of the
+    deltas`` over the ranks. Byte ledgers are additive, so two-endpoint
+    byte conservation stays exact; busy-time deltas sum as if the ranks'
+    demands were serialized on the channel.
+
+    The nine deltas travel as one flat buffer in one `all_gather`, and
+    the ranks' deltas are summed in rank order (not by the backend's
+    `all_reduce`, whose order gloo and NCCL choose), so every rank and
+    every backend gets the same bits; two addends commute, so world 2
+    equals the reference's `psum`. The arithmetic is the reference's,
+    ``base + (local - base)``, at world 1 too. The link is never
+    touched. Raises RuntimeError when no process group is started.
+    """
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("reduce_deltas needs a process group: call "
+                           "launch.mesh.init_distributed first")
+    deltas = [getattr(local, f) - getattr(base, f) for f in _SHARED_FIELDS]
+    flat = torch.cat([d.reshape(-1) for d in deltas])
+    parts = [torch.empty_like(flat)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat, group=group)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    merged, off = {}, 0
+    for f, d in zip(_SHARED_FIELDS, deltas):
+        merged[f] = getattr(base, f) + total[off:off + d.numel()].reshape(
+            d.shape)
+        off += d.numel()
+    return local._replace(**merged)
 
 
 # ------------------------------------------------- adaptive repartitioning

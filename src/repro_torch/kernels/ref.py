@@ -14,6 +14,9 @@ the card) and what the wrappers in `ops` run on CPU tensors. They follow
   ``jnp.int64``, but the repository never enables jax's x64 mode, so the
   cast yields int32 and ``x - base`` wraps; here the difference is taken
   in int64 and wrapped explicitly (`wrap_i32`).
+
+`decode_attention_paged` is the reference's paged-decode oracle. It has
+no kernel, and no serve path calls it.
 """
 from __future__ import annotations
 
@@ -192,3 +195,29 @@ def fused_residency_step(res, kpool, vpool, remote_k, remote_v, landed,
         torch.bool), gate=local_hit)
     return (res, kpool, vpool, evicted.to(I32), n_ev, k_local, v_local,
             local_hit)
+
+
+def decode_attention_paged(q, kpages, vpages, page_table, lengths):
+    """Paged flash-decode oracle.
+
+    q: (B, NH, D); kpages/vpages: (P, page, KV, D) pool; page_table:
+    (B, MAXP) int32 page ids (-1 pad); lengths: (B,) tokens. Returns
+    (B, NH, D): each sequence's pages gathered, the KV heads broadcast
+    to NH, and a softmax over the first `lengths` tokens, in f32."""
+    b, nh, d = q.shape
+    _, page, kvh, _ = kpages.shape
+    maxp = page_table.shape[1]
+    group = nh // kvh
+    tbl = torch.clamp(page_table.long(), min=0)
+    k = kpages[tbl].reshape(b, maxp * page, kvh, d)
+    v = vpages[tbl].reshape(b, maxp * page, kvh, d)
+    k = k.repeat_interleave(group, dim=2)
+    v = v.repeat_interleave(group, dim=2)
+    s = torch.einsum("bnd,btnd->bnt", q.to(F32), k.to(F32))
+    s = s / torch.sqrt(torch.tensor(d, dtype=F32, device=q.device))
+    pos = torch.arange(maxp * page, device=q.device)
+    mask = pos[None, :] < lengths.to(q.device)[:, None]
+    s = torch.where(mask[:, None, :], s, torch.tensor(-1e30, dtype=F32,
+                                                      device=q.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bnt,btnd->bnd", w, v.to(F32)).to(q.dtype)

@@ -21,8 +21,9 @@ does):
 A `runtime.obs.SpanRecorder` (passed in, or made when the store's
 telemetry level is "trace") captures prefill and decode spans; they come
 back in the ledger as `trace_spans`, and the store's telemetry state as
-`_tel`. Everything runs on the card unless the caller passes
-device="cpu". Mesh placement of the replicas (`mesh=`) is not ported.
+`_tel`. `serve_replicated(mesh=)` places the replicas on the ranks of a
+process-group mesh (`runtime.mesh_plane`). Everything runs on the card
+unless the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -272,27 +273,41 @@ def serve_replicated(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
     NIC bank. Each of the C*B tenants owns a distinct region of one
     shared remote KV pool.
 
+    `mesh` (optional 1-axis ``("data",)`` mesh of a process group, see
+    `runtime.mesh_plane`) places the replica axis on the ranks: rank r
+    decodes only its C/W replicas' sequences and steps the store through
+    `mesh_plane.step_replicated_sharded` (its replicas' state and NICs
+    local, the shared module bank merged across the ranks every step);
+    at the end the tokens and the store state (less the pools, which
+    the ledger does not read) are gathered, and every rank returns the
+    same (tokens, ledger). C must divide evenly by the
+    world size. A world-1 mesh gives the tokens and ledger of
+    ``mesh=None`` bit for bit. Every replica decodes the same prompts,
+    so under greedy decoding a row's tokens do not depend on the batch
+    it decodes in; at temperature > 0 a rank's generator draws for its
+    rows only, so sampled tokens differ from ``mesh=None``'s.
+
     Returns (tokens (C, B, P + max_new_tokens), ledger dict, including
     per-module `module_bytes` and per-replica `unit_bytes`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "serve_replicated(mesh=...) places the replicas on devices "
-            "through torch.distributed, which is not ported yet "
-            "(ROADMAP Queue 1 item 14)")
     device = resolve_device(device)
     opt = opt or ModelOptions(remat="none")
     recorder = _maybe_recorder(recorder, store_cfg)
     c = num_replicas
     prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
     b, p = prompts.shape
-    flat_prompts = prompts.repeat(c, 1)                    # (C*B, P)
-    state = init_decode_state(cfg, c * b, p + scfg.max_new_tokens, opt,
-                              device=device)
+    kv = init_kv_store_replicated(store_cfg, c, b, link=link,
+                                  device=device)
+    c_local = c
+    if mesh is not None:
+        from repro_torch.runtime import mesh_plane
+        kv = mesh_plane.shard_replicated_state(kv, mesh)
+        c_local = kv.num_replicas
+    flat_prompts = prompts.repeat(c_local, 1)              # (C/W*B, P)
+    state = init_decode_state(cfg, c_local * b, p + scfg.max_new_tokens,
+                              opt, device=device)
     step = make_decode_fn(cfg, opt)
     gen = torch.Generator(device=device).manual_seed(scfg.seed)
 
-    kv = init_kv_store_replicated(store_cfg, c, b, link=link,
-                                  device=device)
     remote_k, remote_v = _remote_pool(
         store_cfg, c * b * pcfg.pages_per_seq, device)
     seq_ids = torch.arange(c * b, dtype=torch.int32, device=device)
@@ -304,13 +319,19 @@ def serve_replicated(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
             torch.full((c * b,), pos, dtype=torch.int32, device=device),
             seq_ids, store_cfg.page_tokens, pcfg.window_pages,
             pcfg.pages_per_seq)
-        kv_state, _, _, _ = step_fetch_replicated(
-            kv_state, store_cfg, remote_k, remote_v, need.reshape(shape),
-            offs.reshape(shape), writes.reshape(shape), policy=pol)
+        req = (need.reshape(shape), offs.reshape(shape),
+               writes.reshape(shape))
+        if mesh is None:
+            kv_state, _, _, _ = step_fetch_replicated(
+                kv_state, store_cfg, remote_k, remote_v, *req, policy=pol)
+        else:
+            kv_state, _, _, _ = mesh_plane.step_replicated_sharded(
+                kv_state, store_cfg, mesh, remote_k, remote_v, *req,
+                policy=pol)
         return kv_state
 
     # zero-length prompts skip prefill and decode from a BOS-like token 0
-    nxt = torch.zeros((c * b, 1), dtype=torch.int32, device=device)
+    nxt = torch.zeros((c_local * b, 1), dtype=torch.int32, device=device)
     with _span(recorder, "prefill", tokens=p) as sp:
         for i in range(p):
             nxt, state = step(params, state, flat_prompts[:, i:i + 1], i,
@@ -326,5 +347,14 @@ def serve_replicated(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
                               scfg.temperature)
             kv = kv_step(kv, p + i)
         sp["sync"] = (tok, kv.fab.page_busy)
-    tokens = torch.cat(out, dim=1).reshape((c, b, -1))
-    return tokens, _finish_ledger(store_ledger(kv), kv, recorder)
+    tokens = torch.cat(out, dim=1)
+    if mesh is not None:
+        tokens = mesh_plane.gather_rows(tokens, mesh)
+        # the ledger reads the counters, telemetry and banks, not the
+        # pools: gather the state with empty pools
+        seqs = kv.seqs._replace(kpool=kv.seqs.kpool[:, :0],
+                                vpool=kv.seqs.vpool[:, :0])
+        kv = mesh_plane.gather_replicated_state(kv._replace(seqs=seqs),
+                                                mesh)
+    return (tokens.reshape((c, b, -1)),
+            _finish_ledger(store_ledger(kv), kv, recorder))

@@ -451,38 +451,59 @@ def _simulate_point(cfg, n_pages, telcfg, flags, warm_after, trace_arrays,
     return _metrics(_replay(st, step, trace_arrays), net, telcfg)
 
 
+def _lattice_lanes(n_schemes, n_cus, cells):
+    """The lanes of a lattice over `cells`, a list of (net, policy)
+    index pairs: one lane per (scheme, cell, active-C), ordered by
+    (scheme, net, active-C, policy) and then by the cell's position in
+    `cells` (a repeated cell comes after its first copy). Over every
+    cell in (net, policy) order this is the reference's vmap nesting
+    (schemes, nets, active-C, policies), lane for lane. Returns four
+    index lists (scheme, net, active-C, policy) and the lanes' cell
+    positions."""
+    keys = sorted((s, n, c, p, j) for j, (n, p) in enumerate(cells)
+                  for s in range(n_schemes) for c in range(n_cus))
+    return tuple(list(col) for col in zip(*keys))
+
+
 def _lattice(cfg, n_pages, telcfg, tflags, warm_after, trace_arrays,
-             nets, comp_ratio, active_cus, policies):
-    """`_simulate_point` over schemes x nets x active-C x policies.
+             nets, comp_ratio, active_cus, policies, cells=None):
+    """`_simulate_point` over schemes x `cells` x active-C.
 
     The reference nests four `jax.vmap`s (schemes, nets, active-C,
-    policies; the in_axes of its `_lattice_jit`). Here the four axes are
-    flattened into one: each input is laid out along the (S*N*C*P,)
-    product in that nesting order (repeated along the axes it does not
-    vary on, as the reference's `None` in_axes broadcast it) and one
-    `torch.func.vmap` lifts the point. Every lane sees the same operands
-    as the nested form, and each op pays one batching level instead of
-    four. Returns the metrics dict with (S, N, C, P) leaves."""
+    policies; the in_axes of its `_lattice_jit`). Here the lattice is
+    flattened into lanes (`_lattice_lanes`): each input is gathered
+    along the lanes (the reference's `None` in_axes broadcast what a
+    lane does not vary on) and one `torch.func.vmap` lifts the point.
+    Every lane sees the same operands as the nested form, and each op
+    pays one batching level instead of four. `cells` is a list of (net,
+    policy) index pairs, default every one in (net, policy) order: the
+    lanes, their order and their count are then the whole lattice's, so
+    a subset's run (`runtime.mesh_plane`) over all cells is this one.
+    Returns the metrics dict with (S, len(cells), C) leaves."""
     s = tflags.bw_ratio.shape[0]
-    n = nets["bw"].shape[0]
     c = active_cus.shape[0]
-    p = policies.rrip.shape[0]
+    if cells is None:
+        cells = [(n, p) for n in range(nets["bw"].shape[0])
+                 for p in range(policies.rrip.shape[0])]
+    dev = active_cus.device
+    si, ni, ci, pi, ji = (torch.as_tensor(ix, dtype=torch.long, device=dev)
+                          for ix in _lattice_lanes(s, c, cells))
 
-    def lay(t, outer, inner):
-        """(k, ...) axis leaf -> (outer*k*inner, ...): each entry repeated
-        `inner` times, the whole tiled `outer` times."""
-        t = t.repeat_interleave(inner, dim=0)
-        return t.repeat((outer,) + (1,) * (t.dim() - 1))
-
-    def lay_tree(tree, outer, inner):
-        return compute_plane.tree_map(lambda t: lay(t, outer, inner), tree)
+    def take(tree, idx):
+        return compute_plane.tree_map(lambda t: t.index_select(0, idx),
+                                      tree)
 
     point = partial(_simulate_point, cfg, n_pages, telcfg)
     out = vmap(point, in_dims=(0, None, None, 0, 0, 0, 0))(
-        lay_tree(tflags, 1, n * c * p), warm_after, trace_arrays,
-        lay_tree(nets, s, c * p), lay(comp_ratio, 1, n * c * p),
-        lay(active_cus, s * n, p), lay_tree(policies, s * n * c, 1))
-    return {k: v.reshape(s, n, c, p) for k, v in out.items()}
+        take(tflags, si), warm_after, trace_arrays, take(nets, ni),
+        comp_ratio.index_select(0, si), active_cus.index_select(0, ci),
+        take(policies, pi))
+    dest = (si * len(cells) + ji) * c + ci
+    res = {}
+    for k, v in out.items():
+        res[k] = torch.empty_like(v).index_copy_(0, dest, v).reshape(
+            s, len(cells), c)
+    return res
 
 
 def _trace_arrays(trace: Trace, dev) -> tuple:
@@ -554,6 +575,18 @@ def _nest_lattice(res, n_schemes, n_nets, n_cus, n_pols,
             for i in range(n_schemes)]
 
 
+def _nest_cells(res, n_schemes, n_nets, n_cus, n_pols, squeeze_cu,
+                squeeze_pol):
+    """(S, N*P, C)-leaved metrics over every cell in (net, policy) order
+    -> `_nest_lattice`'s nesting, copied to the host in one transfer."""
+    keys = list(res)
+    host = torch.stack([res[k] for k in keys]).reshape(
+        len(keys), n_schemes, n_nets, n_pols, n_cus).permute(
+        0, 1, 2, 4, 3).cpu().numpy()                 # (K, S, N, C, P)
+    return _nest_lattice(dict(zip(keys, host)), n_schemes, n_nets, n_cus,
+                         n_pols, squeeze_cu, squeeze_pol)
+
+
 def simulate_lattice(schemes, cfg: SimConfig, trace: Trace, nets,
                      comp_ratio, warm_frac: float = 0.3,
                      active_cus=None, policies=None,
@@ -583,10 +616,8 @@ def simulate_lattice(schemes, cfg: SimConfig, trace: Trace, nets,
         policies, telemetry_cfg, dev)
     res = _lattice(cfg, trace.n_pages, telcfg, tflags, warm_after, arrays,
                    stacked, cr, cus, pols)
-    keys = list(res)
-    host = torch.stack([res[k] for k in keys]).cpu().numpy()
-    return _nest_lattice(dict(zip(keys, host)), len(schemes), len(nets),
-                         n_cus, n_pols, squeeze_cu, squeeze_pol)
+    return _nest_cells(res, len(schemes), len(nets), n_cus, n_pols,
+                       squeeze_cu, squeeze_pol)
 
 
 def run_trace(scheme_flags, cfg: SimConfig, trace: Trace, net,

@@ -31,6 +31,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import (ModelOptions, decode_step,
                                       init_decode_state, prefill)
 from repro_torch.runtime import serve_loop as TL
+from repro_torch.runtime.mesh_plane import serve_replicated_sharded
 from repro_torch.runtime.fault import LinkHealthMonitor as TMonitor
 from repro_torch.runtime.obs import SpanRecorder
 from test_torch_serve import STORE, _setup
@@ -83,11 +84,12 @@ def test_serve_replicated_matches_reference(c):
     if c > 1:
         np.testing.assert_allclose(sum(led["unit_bytes"]),
                                    led["wire_bytes"], rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        TL.serve_replicated(params, cfg, torch.from_numpy(prompts),
-                            TL.ServeConfig(max_new_tokens=1),
-                            KVStoreConfig(**STORE), 2, mesh=object(),
-                            device="cpu")
+    # the mesh placement needs a process group (tests/test_torch_mesh_plane
+    # runs it on spawned gloo ranks)
+    with pytest.raises(RuntimeError, match="process group"):
+        serve_replicated_sharded(params, cfg, torch.from_numpy(prompts),
+                                 TL.ServeConfig(max_new_tokens=1),
+                                 KVStoreConfig(**STORE), 2, device="cpu")
 
 
 def test_serve_batch_paged_monitor_and_recorder_match_reference():

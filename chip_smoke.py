@@ -40,7 +40,18 @@ read back under build/); GPipe's `pipeline_forward` over the `stage`
 group with qwen3-1.7b's 28 bf16 blocks as the stage, bit-equal to the
 blocks in turn (`[pipeline]`); and one full-width olmoe-1b-7b MoE layer
 through `moe_ep` over the `model` group against `moe_dense`, forward and
-backward (`[moe_ep]`). Last it
+backward (`[moe_ep]`). Then the dry run (`repro_torch.launch`):
+`[dryrun_vs_card]` traces qwen3-1.7b's decode_step (B = 8, a 32768-token
+cache) and `[train]`'s step on fake CUDA tensors with `op_analysis` and
+runs both for real under the same counter (FLOPs equal, argument bytes
+within the allocator's rounding, peak within 10 %, K3's traced calls
+equal its launches, device ms against max(FLOPs / 989.4 TFLOP/s, bytes /
+3.35 TB/s)); `[examples]` runs `repro_torch.examples.quickstart`,
+`serve_paged` and `train_100m` (20 steps, then resumed to 24); and
+`[dryrun_cells]` collects five cells of `launch.dryrun` (qwen3-1.7b
+train_4k, prefill_32k and decode_32k on 16 x 16, train_4k with the int8
+pod sync on 2 x 16 x 16, olmoe-1b-7b decode_32k), each a subprocess on
+the host started when the script starts, every one `ok`. Last it
 runs the request-level simulator (`repro_torch.sim`): the seed golden
 (pr and dr, 9 schemes x 3 nets, r = 6000) held to
 tests/golden/seed_movement_golden.json (`[sim_golden]`), every lattice
@@ -82,6 +93,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -125,6 +137,9 @@ from repro_torch.kernels import paged_gather as PG  # noqa: E402
 from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
+from repro_torch.device import fake_mode  # noqa: E402
+from repro_torch.launch import op_analysis as OA  # noqa: E402
+from repro_torch.launch import specs as SPECS  # noqa: E402
 from repro_torch.launch.mesh import (build_mesh,  # noqa: E402
                                      init_distributed, make_data_mesh,
                                      shutdown_distributed)
@@ -2071,6 +2086,245 @@ def moe_ep_phase():
 
 
 # ------------------------------------------------------ phase 9: simulator
+# ------------------------------------------------------------ dry run
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", ()),
+                ("qwen3-1.7b", "prefill_32k", ()),
+                ("qwen3-1.7b", "decode_32k", ()),
+                ("qwen3-1.7b", "train_4k", ("--multi-pod", "--dp-compress",
+                                            "int8")),
+                ("olmoe-1b-7b", "decode_32k", ()))
+DRYRUN_WAIT_S = 900                 # the longest a cell may take in all
+PEAK_BF16_FLOPS = 989.4e12          # H100 SXM dense bf16, FLOP/s (public)
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory, bytes/s
+DVC_DECODE = ShapeConfig("dvc_decode", 32768, 8, "decode")
+DVC_PEAK_TOL = 0.10                 # predicted peak against the card's
+FAKE_DEVICE = "cuda"                # [dryrun_vs_card]'s fake tensors
+
+
+def dryrun_cells_start():
+    """Start the dry-run cells, one `python -m repro_torch.launch.dryrun`
+    each, all at once, on the host: CUDA_VISIBLE_DEVICES is empty, so
+    their fake tensors are CPU tensors and no process touches the card
+    (the counterpart of the reference's forced host devices). Returns
+    (their output directory, [(cell, process, log, start time)])."""
+    out = ROOT / "build" / f"dryrun_{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, *extra, "--dump-ops", "--out-dir",
+               str(out)]
+        log = open(out / f"{arch}__{shape}__{len(extra)}.log", "w")
+        procs.append(((arch, shape, extra),
+                      subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT),
+                      log, time.perf_counter()))
+    return out, procs
+
+
+def dryrun_cells_stop(procs):
+    """End every dry-run process that is still running."""
+    for _, proc, log, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        log.close()
+
+
+def dryrun_cells_phase(out, procs):
+    """Wait for each dry-run cell and print its record: status, seconds,
+    TFLOP and HBM bytes per chip, collective wire bytes by kind, and the
+    argument and temporary GiB per chip; for the int8 cell also K3's
+    calls in the traced op list. Any status but "ok" fails."""
+    deadline = time.perf_counter() + DRYRUN_WAIT_S
+    for (arch, shape, extra), proc, log, t0 in procs:
+        proc.wait(max(1.0, deadline - time.perf_counter()))
+        mesh = "multipod_2x16x16" if "--multi-pod" in extra else "pod_16x16"
+        rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+        if rec["status"] != "ok" or proc.returncode != 0:
+            raise AssertionError(f"dry-run cell {arch} {shape} {mesh}: "
+                                 f"{rec['status']} {rec.get('error')} at "
+                                 f"{rec.get('failing_op')}")
+        oa, mem = rec["op_analysis"], rec["memory_analysis"]
+        kv = {}
+        if "--dp-compress" in extra:
+            ops = {o["op"]: o["count"] for o in json.loads(
+                (out / f"{arch}__{shape}__{mesh}.ops.json").read_text())}
+            kv = {"k3q_calls": ops.get("repro_torch.quantize_block_int8", 0),
+                  "k3d_calls": ops.get("repro_torch.dequantize_block_int8",
+                                       0)}
+            if min(kv.values()) <= 0:
+                raise AssertionError(f"the int8 cell traced no K3 call: {kv}")
+        phase("dryrun_cells", arch=arch, shape=shape, mesh=mesh,
+              status=rec["status"], device=rec["device"],
+              torch=rec["torch"],
+              seconds=f"{rec['specs_s'] + rec['trace_s']:.1f}",
+              wall_s=f"{time.perf_counter() - t0:.1f}",
+              tflop_per_chip=f"{rec['flops'] / 1e12:.4f}",
+              model_tflop_per_chip=(
+                  f"{rec['model_flops'] / 1e12 / rec['chips']:.4f}"),
+              hbm_bytes_per_chip=int(rec["bytes_accessed"]),
+              wire_bytes={k: int(v["wire_bytes"])
+                          for k, v in oa["collectives"].items()},
+              argument_gib=f"{mem['argument_size_in_bytes'] / 2**30:.3f}",
+              temp_gib=f"{mem['temp_size_in_bytes'] / 2**30:.3f}", **kv)
+
+
+def _storages(tree):
+    return len({t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)})
+
+
+def _vs_card(title, fake_args, build_real, step_fn, k3=False, **kv):
+    """Trace `step_fn` on `fake_args` (fake CUDA tensors) with
+    op_analysis, then build the same arguments on the card and run the
+    step once under the same counter: FLOPs equal exactly, the predicted
+    argument bytes equal the allocator's to within its 512-byte rounding,
+    the predicted peak is within 10 % of the card's, and K3's traced
+    calls equal its launches. Then one uncounted step is timed against
+    max(FLOPs / 989.4 TFLOP/s, bytes / 3.35 TB/s)."""
+    fake_counter = OA.OpCounter()
+    with fake_mode():
+        pred = OA.analyze(step_fn, *fake_args, counter=fake_counter)
+    del fake_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = build_real()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    slack = 512 * _storages(args)
+    if not pred["argument_bytes"] <= alloc <= pred["argument_bytes"] + slack:
+        raise AssertionError(f"{title}: {alloc} argument bytes allocated, "
+                             f"{pred['argument_bytes']} predicted")
+    torch.cuda.reset_peak_memory_stats()
+    for k in QD.KERNELS:
+        k.launches = 0
+    real = OA.analyze(step_fn, *args, counter=OA.OpCounter())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = [k.launches for k in QD.KERNELS]
+    if real["flops_per_chip"] != pred["flops_per_chip"]:
+        raise AssertionError(f"{title}: {real['flops_per_chip']} FLOPs run, "
+                             f"{pred['flops_per_chip']} traced")
+    gap = (pred["peak_bytes"] - peak) / peak
+    if abs(gap) > DVC_PEAK_TOL:
+        raise AssertionError(f"{title}: peak {pred['peak_bytes']} predicted, "
+                             f"{peak} on the card ({gap:+.3%})")
+    traced = [fake_counter.ops.get(f"repro_torch.{n}", [0])[0]
+              for n in ("quantize_block_int8", "dequantize_block_int8")]
+    if k3 and (traced != launches or min(launches) <= 0):
+        raise AssertionError(f"{title}: K3 traced {traced}, launched "
+                             f"{launches}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step_fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    roof = max(pred["flops_per_chip"] / PEAK_BF16_FLOPS,
+               pred["hbm_bytes_per_chip"] / HBM_BYTES_PER_S) * 1e3
+    phase("dryrun_vs_card", step=title, **kv,
+          flops_traced=pred["flops_per_chip"],
+          flops_card=real["flops_per_chip"],
+          hbm_bytes_traced=pred["hbm_bytes_per_chip"],
+          hbm_bytes_card=real["hbm_bytes_per_chip"],
+          argument_bytes_traced=pred["argument_bytes"],
+          argument_bytes_allocated=alloc,
+          peak_gib_traced=f"{pred['peak_bytes'] / 2**30:.3f}",
+          peak_gib_card=f"{peak / 2**30:.3f}", peak_gap=f"{gap:+.4%}",
+          k3_traced=traced, k3_launches=launches, ops=pred["num_ops"],
+          device_ms=f"{ms:.3f}", roofline_ms=f"{roof:.3f}",
+          roofline_share=f"{roof / ms:.4f}",
+          peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+          hbm_tb_per_s=HBM_BYTES_PER_S / 1e12)
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_vs_card_phase(smi):
+    """The dry run's counts held against the card, on one card with no
+    mesh: qwen3-1.7b's decode_step at B = 8 against a 32768-token cache
+    (bf16 weights and cache), and the `[train]` cell's step (4 x 1024
+    tokens, f32 master params, remat "full", the int8 pod sync over 2
+    pods). Returns K3's launches in the train step."""
+    print(f"[dryrun_vs_card] card={smi}", flush=True)
+    cfg = get_config("qwen3-1.7b")
+    opt = SPECS.model_options_for(cfg, DVC_DECODE)
+    fake, _ = SPECS.input_specs(cfg, DVC_DECODE, opt, device=FAKE_DEVICE)
+
+    def real_decode():
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        p = init_model(cfg, gen, dtype=torch.bfloat16)
+        p = CP.tree_map(lambda t: t.to(torch.bfloat16), p)
+        state = init_decode_state(cfg, DVC_DECODE.global_batch,
+                                  DVC_DECODE.seq_len, opt, device=DEV)
+        tokens = torch.randint(2, cfg.vocab_size,
+                               (DVC_DECODE.global_batch, 1),
+                               generator=gen, device=DEV, dtype=torch.int32)
+        return (p, state, tokens, DVC_DECODE.seq_len - 1)
+
+    _vs_card("decode_step", fake, real_decode,
+             lambda p, s, t, pos: decode_step(p, cfg, s, t, pos, opt),
+             batch=DVC_DECODE.global_batch, cache=DVC_DECODE.seq_len)
+    opt = SPECS.model_options_for(cfg, TRAIN_SHAPE)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4), warmup_steps=0,
+                       total_steps=TRAIN_STEPS, dp_compress="int8",
+                       num_pods=TRAIN_PODS, quant_block=QBLOCK)
+    fake, _ = SPECS.input_specs(cfg, TRAIN_SHAPE, opt, device=FAKE_DEVICE)
+
+    def real_train():
+        params = init_model(cfg, torch.Generator(device=DEV).manual_seed(0))
+        batch = synthetic_batch(cfg, TRAIN_SHAPE, DataConfig(seed=0), 0,
+                                device=DEV)
+        batch["labels"] = batch["labels"].clone()   # its own storage
+        return (params, adamw_init(params), batch, 0)
+
+    return _vs_card("train_step", fake, real_train,
+                    make_train_step(cfg, opt, tcfg), k3=True,
+                    batch=TRAIN_SHAPE.global_batch, seq=TRAIN_SHAPE.seq_len,
+                    pods=TRAIN_PODS, remat=opt.remat)
+
+
+def examples_phase():
+    """The port's runnable examples on the card: quickstart (train 8
+    steps of reduced qwen3-1.7b, then decode), serve_paged (DaeMon
+    against Remote-style ledgers, the residency plane's tenants,
+    replicated serving) and train_100m for 20 steps with checkpoints in
+    a temporary directory, then again to 24 steps, resumed."""
+    from repro_torch.examples import quickstart, serve_paged, train_100m
+    out = ROOT / "build" / f"examples_{os.getpid()}"
+    out.mkdir(parents=True, exist_ok=True)
+    q = quickstart.main([])
+    if not (np.isfinite(q["losses"]).all() and q["losses"][-1] <
+            q["losses"][0]):
+        raise AssertionError(f"quickstart loss did not fall: {q['losses']}")
+    s = serve_paged.main(["--trace-out", str(out / "TRACE_tenants.json")])
+    if not s["daemon"]["wire_bytes"] < s["remote"]["wire_bytes"]:
+        raise AssertionError("DaeMon moved no fewer bytes than Remote-style")
+    ckpt = tempfile.mkdtemp(prefix="train_100m_", dir=out)
+    first = train_100m.main(["--steps", "20", "--ckpt-every", "10",
+                             "--ckpt-dir", ckpt])
+    resumed = train_100m.main(["--steps", "24", "--ckpt-every", "10",
+                               "--ckpt-dir", ckpt])
+    if resumed["start"] != 20 or not first["loss"] < first["first_loss"]:
+        raise AssertionError(f"train_100m: {first} then {resumed}")
+    shutil.rmtree(out, ignore_errors=True)
+    phase("examples", quickstart_loss=f"{q['losses'][0]:.4f}->"
+          f"{q['losses'][-1]:.4f}",
+          serve_paged_wire_saving=f"{s['saving']:.4f}",
+          daemon_wire_bytes=s["daemon"]["wire_bytes"],
+          remote_wire_bytes=s["remote"]["wire_bytes"],
+          train_100m_loss=f"{first['first_loss']:.4f}->{first['loss']:.4f}",
+          train_100m_resumed_at=resumed["start"])
+
+
 GOLDEN = ROOT / "tests" / "golden" / "seed_movement_golden.json"
 # ------------------------------------------------------- model families
 FAMILY_ARCHS = ("olmoe-1b-7b", "zamba2-2.7b", "xlstm-125m", "whisper-base",
@@ -2704,6 +2958,14 @@ def sim_fig8_phase():
 def main():
     name, smi = device_phase()
     build_phase()
+    dr_out, dr_procs = dryrun_cells_start()
+    try:
+        run(name, smi, dr_out, dr_procs)
+    finally:
+        dryrun_cells_stop(dr_procs)
+
+
+def run(name, smi, dr_out, dr_procs):
     gen = torch.Generator(device=DEV).manual_seed(0)
     k2 = gather_phase(gen)
     k1_err = residency_phase(gen)
@@ -2772,14 +3034,20 @@ def main():
     restart_counts = train_restart_phase(sums)
     gc.collect()
     torch.cuda.empty_cache()
-    for i, k3 in enumerate((k3q, k3d)):
-        k3["launches_by_path"] = {"train": k3_counts[i],
-                                  "train_reference_dist": dist_counts[i],
-                                  "train_restart": restart_counts[i]}
     pipeline_phase()
     moe_ep_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    dvc_counts = dryrun_vs_card_phase(smi)
+    for i, k3 in enumerate((k3q, k3d)):
+        k3["launches_by_path"] = {"train": k3_counts[i],
+                                  "train_reference_dist": dist_counts[i],
+                                  "train_restart": restart_counts[i],
+                                  "dryrun_vs_card": dvc_counts[i]}
+    examples_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_cells_phase(dr_out, dr_procs)
     sim_golden_phase()
     mesh_lattice_phase(sim_axes_phase())
     sim_fig8_phase()

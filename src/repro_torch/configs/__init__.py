@@ -2,7 +2,8 @@
 reference's ten configs — dense (qwen3-1.7b, qwen3-8b, yi-9b,
 minitron-4b), MoE (olmoe-1b-7b, qwen3-moe-30b-a3b), the Mamba2 hybrid
 (zamba2-2.7b), xLSTM (xlstm-125m), audio encoder-decoder (whisper-base)
-and vision-language (internvl2-26b) — and ``get_shape(name)``."""
+and vision-language (internvl2-26b) — ``get_shape(name)``, and the
+dry run's 40 (arch, shape) cells, ``dryrun_cells()``."""
 from __future__ import annotations
 
 from repro_torch.configs import (internvl2_26b, minitron_4b, olmoe_1b_7b,
@@ -36,3 +37,15 @@ def get_shape(name: str) -> ShapeConfig:
     if name in SMOKE_SHAPES:
         return SMOKE_SHAPES[name]
     raise KeyError(f"unknown shape {name!r}")
+
+
+def dryrun_cells():
+    """All (arch, shape) cells with skip annotations -> list of dicts."""
+    cells = []
+    for arch_name in list_archs():
+        cfg = get_config(arch_name)
+        for shape_name, shape in SHAPES.items():
+            ok, reason = cfg.shape_supported(shape)
+            cells.append({"arch": arch_name, "shape": shape_name,
+                          "run": ok, "skip_reason": reason})
+    return cells

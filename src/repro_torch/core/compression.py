@@ -20,7 +20,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ieee_div, wrap_i32
+from repro_torch.kernels import ref as _kref
 
 F32 = torch.float32
 
@@ -60,7 +60,7 @@ def quantize_block_int4(x, block: int = 256):
     (packed (N, block/2) uint8, scales (N,) f32)."""
     xb, _ = _blocked(x.to(F32), block)
     amax = xb.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(amax > 0, ieee_div(amax, 7.0),
+    scale = torch.where(amax > 0, _kref.ieee_div(amax, 7.0),
                         torch.ones((), dtype=F32, device=xb.device))
     q = torch.clamp(torch.round(xb / scale), -7, 7).to(torch.int32) + 8
     packed = (q[:, 0::2] | (q[:, 1::2] << 4)).to(torch.uint8)
@@ -86,7 +86,7 @@ def bdi_compress_block(x_i32, delta_bits: int = 8):
     the delta taken with int32 wraparound; callers store ok=False blocks
     raw."""
     base = x_i32[0]
-    delta = wrap_i32(x_i32.long() - base.long())
+    delta = _kref.wrap_i32(x_i32.long() - base.long())
     lim = 2 ** (delta_bits - 1)
     ok = ((delta >= -lim) & (delta < lim)).all()
     deltas = torch.clamp(delta, -lim, lim - 1).to(torch.int8)
@@ -94,7 +94,7 @@ def bdi_compress_block(x_i32, delta_bits: int = 8):
 
 
 def bdi_decompress_block(base, deltas):
-    return wrap_i32(base.long() + deltas.long())
+    return _kref.wrap_i32(base.long() + deltas.long())
 
 
 def compression_ratio_int8(shape, block: int = 256) -> float:

@@ -24,7 +24,7 @@ from typing import Iterator
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import fake_mode, resolve_device
 
 
 @dataclass(frozen=True)
@@ -93,3 +93,26 @@ def synthetic_batch_iterator(cfg: ArchConfig, shape: ShapeConfig,
     while True:
         yield synthetic_batch(cfg, shape, dcfg, step, device)
         step += 1
+
+
+def make_batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                     dtype=torch.float32, device="cpu"):
+    """Fake stand-ins (``device.fake_mode``: no memory) + logical axes for
+    every model input: tokens, labels (B,S) int32, mask (B,S) f32, and
+    the stubs' `frontend` (B, F or T_enc, D) in `dtype`."""
+    b, s = shape.global_batch, shape.seq_len
+    with fake_mode():
+        def empty(shp, dt):
+            return torch.empty(shp, dtype=dt, device=device)
+
+        specs = {"tokens": empty((b, s), torch.int32),
+                 "labels": empty((b, s), torch.int32),
+                 "mask": empty((b, s), torch.float32)}
+        rows = {"vision_stub": cfg.frontend_tokens,
+                "audio_stub": cfg.encoder_seq}.get(cfg.frontend)
+        if rows is not None:
+            specs["frontend"] = empty((b, rows, cfg.d_model), dtype)
+    axes = {k: ("batch", None) for k in ("tokens", "labels", "mask")}
+    if "frontend" in specs:
+        axes["frontend"] = ("batch", None, None)
+    return specs, axes

@@ -5,6 +5,11 @@ plain PyTorch version on a CPU tensor; `"cuda"` always launches the
 kernel (and so raises on a CPU tensor); `"ref"` always runs the plain
 version — for tests and for holding the kernels against it. There is no
 fallback: a kernel that fails to build or launch raises.
+
+Block int8 quantize and dequantize go through their ``torch.library``
+custom ops (``kernels.qdq_int8``), which pick the same way by the
+tensor's device and which a dry run on fake tensors traces as one op
+per call.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from repro_torch.kernels import paged_gather as _pg
 from repro_torch.kernels import qdq_int8 as _qdq
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import residency_fused as _rf
+from repro_torch.kernels._build import check_cuda
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -25,18 +31,27 @@ def _use_kernel(t, impl: str) -> bool:
     return impl == "cuda" or (impl == "auto" and t.is_cuda)
 
 
+def _custom_op(t, name: str, impl: str) -> bool:
+    """K3's route: its custom op (the kernel on a CUDA tensor, the plain
+    version on a CPU one) unless `impl` is "ref"; "cuda" raises on a CPU
+    tensor."""
+    if _use_kernel(t, impl) and impl == "cuda":
+        check_cuda(name, t)
+    return impl != "ref"
+
+
 def quantize_block_int8(x2d, impl: str = "auto"):
     """(N, B) f32 -> (q (N, B) int8, scale (N, 1) f32), per-row scale."""
-    if _use_kernel(x2d, impl):
-        return _qdq.quantize_block_int8(x2d)
+    if _custom_op(x2d, "x2d", impl):
+        return _qdq.quantize_op(x2d)
     return _ref.quantize_block_int8(x2d)
 
 
 def dequantize_block_int8(q, scale, out_dtype=torch.float32,
                           impl: str = "auto"):
     """q (N, B) int8 * scale (N, 1) f32 -> (N, B) `out_dtype`."""
-    if _use_kernel(q, impl):
-        return _qdq.dequantize_block_int8(q, scale, out_dtype)
+    if _custom_op(q, "q", impl):
+        return _qdq.dequantize_op(q, scale, out_dtype)
     return _ref.dequantize_block_int8(q, scale, out_dtype)
 
 

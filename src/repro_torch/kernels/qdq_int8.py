@@ -7,6 +7,13 @@ Hopper counterparts of the Pallas kernels
 ``ref.quantize_block_int8`` / ``ref.dequantize_block_int8``; ``ops`` picks
 between them by the tensor's device. Unlike the Pallas kernels, any
 number of rows is taken; the block width B must be one of `BLOCKS`.
+
+`quantize_op` and `dequantize_op` are the same two functions as
+``torch.library`` custom ops (``repro_torch::quantize_block_int8`` and
+``repro_torch::dequantize_block_int8``): on a CUDA tensor they launch the
+kernel through the wrappers below, on a CPU tensor they run the plain
+version, and on a fake tensor (the dry run) their fake implementation
+gives the output shapes, so a traced step sees each call as one op.
 """
 from __future__ import annotations
 
@@ -69,3 +76,39 @@ def dequantize_block_int8(q, scale, dtype=torch.float32):
         DEQUANT.launch(ptr(q), ptr(scale), ptr(out), ctypes.c_longlong(n),
                        ctypes.c_int(b), ctypes.c_int(dtype == torch.bfloat16))
     return out
+
+
+@torch.library.custom_op("repro_torch::quantize_block_int8", mutates_args=(),
+                         schema="(Tensor x2d) -> (Tensor, Tensor)")
+def quantize_op(x2d):
+    """`quantize_block_int8` on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    if x2d.is_cuda:
+        return quantize_block_int8(x2d)
+    from repro_torch.kernels import ref
+    return ref.quantize_block_int8(x2d)
+
+
+@quantize_op.register_fake
+def _(x2d):
+    n, b = x2d.shape
+    return (x2d.new_empty((n, b), dtype=torch.int8),
+            x2d.new_empty((n, 1), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::dequantize_block_int8",
+                         mutates_args=(),
+                         schema="(Tensor q, Tensor scale, ScalarType dtype)"
+                                " -> Tensor")
+def dequantize_op(q, scale, dtype):
+    """`dequantize_block_int8` on a CUDA tensor, its plain version on a
+    CPU tensor."""
+    if q.is_cuda:
+        return dequantize_block_int8(q, scale, dtype)
+    from repro_torch.kernels import ref
+    return ref.dequantize_block_int8(q, scale, dtype)
+
+
+@dequantize_op.register_fake
+def _(q, scale, dtype):
+    return q.new_empty(q.shape, dtype=dtype)

@@ -7,6 +7,9 @@ group: one rank per device, its axes named as the reference's (`pod`,
 the collectives that run over it. `init_distributed` starts the default
 group (NCCL on the card, gloo on the CPU) from a ``file://`` rendezvous
 — no network, no fixed port — and `shutdown_distributed` ends it.
+`init_fake_distributed` starts a fake group of any world size in one
+process, whose collectives move nothing: the dry run's counterpart of
+the reference's 512 forced host devices.
 
 Every mesh is built through `build_mesh` (one validation path). Nothing
 here touches ``torch.distributed`` at import time.
@@ -19,7 +22,7 @@ import tempfile
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import fake_device, resolve_device
 
 
 def init_distributed(device=None, init_method=None, rank: int = 0,
@@ -50,6 +53,19 @@ def init_distributed(device=None, init_method=None, rank: int = 0,
     return device
 
 
+def init_fake_distributed(world_size: int, rank: int = 0) -> None:
+    """Start a fake default process group of `world_size` ranks, this
+    process being `rank`: a mesh builds on it (its device type is
+    ``device.fake_device()``) and every collective returns at once
+    without moving data. End it with `shutdown_distributed`."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the default process group is already started")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 def shutdown_distributed() -> None:
     """End the default process group (and every mesh built on it)."""
     import torch.distributed as dist
@@ -74,7 +90,8 @@ def build_mesh(shape, axes):
     if world != n:
         raise RuntimeError(f"need {n} ranks for mesh {shape}, have {world}; "
                            "start one process per device of the mesh")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = {"nccl": "cuda", "fake": fake_device()}.get(
+        dist.get_backend(), "cpu")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -13,11 +13,13 @@ keeps the reference's (B, T, K, H) layout and is written in place.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch.models.layers import F32, apply_rope, dot, normal, rms_norm
+from repro_torch.runtime.mesh_rules import constrain, is_dtensor, run_local
 
 NEG_INF = -1e30
 
@@ -38,6 +40,16 @@ def init_attention(gen: torch.Generator, cfg, *, cross: bool = False,
         p["q_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
         p["k_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
     return p
+
+
+def attention_axes(cfg, *, cross: bool = False):
+    """Logical axes of `init_attention`'s parameters."""
+    a = {"wq": ("fsdp", "tensor", None), "wk": ("fsdp", "tensor_kv", None),
+         "wv": ("fsdp", "tensor_kv", None), "wo": ("tensor", None, "fsdp")}
+    if cfg.qk_norm and not cross:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
 
 
 def _project_qkv(params, cfg, x, kv_x, positions, kv_positions, use_rope):
@@ -175,14 +187,22 @@ def attention(params, cfg, x, *, kv_x=None, positions=None,
                            use_rope=not cross)
     k = _expand_kv(k, cfg)
     v = _expand_kv(v, cfg)
+    q = constrain(q, ("batch", None, "tensor", None))
+    k = constrain(k, ("batch", None, "tensor", None))
+    v = constrain(v, ("batch", None, "tensor", None))
     if max(s, t) > flash_threshold:
-        out = _flash_attention(q, k, v, positions, kv_positions,
-                               causal and not cross, window,
-                               triangular=triangular)
+        core = functools.partial(_flash_attention, triangular=triangular)
     else:
-        out = _direct_attention(q, k, v, positions, kv_positions,
-                                causal and not cross, window)
-    return dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
+        core = _direct_attention
+    rest = (positions, kv_positions, causal and not cross, window)
+    if is_dtensor(q):
+        # split over batch and heads only (the constraint above): every
+        # rank attends over its own shards, as a partitioner would
+        out = run_local(core, (q, k, v), rest, q.placements)
+    else:
+        out = core(q, k, v, *rest)
+    y = dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
+    return constrain(y, ("batch", None, None))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device=None):
@@ -191,6 +211,13 @@ def init_kv_cache(cfg, batch: int, max_len: int, device=None):
     dt = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def kv_cache_axes(kv_seq_axis: str = "kv_seq"):
+    """Logical axes of one layer's KV cache; `kv_seq_axis` names the
+    sequence axis ("kv_seq", or "long_seq" for long-context decode)."""
+    ax = ("batch", kv_seq_axis, "tensor_kv", None)
+    return {"k": ax, "v": ax}
 
 
 def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,

@@ -6,12 +6,24 @@ dicts of tensors in the reference's layout; a stacked run of layers
 carries a leading (L,) axis. Initialisation draws from an explicit
 ``torch.Generator``: the numbers differ from ``jax.random``, so tests move
 the reference's parameters over with ``repro_torch.convert`` instead.
+
+Each family also states its parameters' *logical axes* (`*_axes`
+functions): a tree of the parameters' structure whose leaves are tuples
+of logical axis names, one per dimension, which
+``runtime.mesh_rules`` maps onto a mesh. `ParamBuilder` and
+`stack_layers` build a (params, axes) pair together, as the reference's
+do.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.core.compute_plane import tree_leaves, tree_map
+from repro_torch.runtime.mesh_rules import (is_axes_leaf, is_dtensor,
+                                            named_sharding,
+                                            outside_fake_mode)
 
 F32 = torch.float32
 
@@ -37,6 +49,90 @@ def normal(gen: torch.Generator, shape, *, scale=None, layers: int = 0,
     return out
 
 
+class ParamBuilder:
+    """Accumulates (params, axes) pairs, drawing from one generator in
+    the order the leaves are added (the reference's `ParamBuilder`,
+    whose split PRNG keys become draws from `gen`)."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+        self.params = {}
+        self.axes = {}
+
+    def add(self, name, shape, axes, *, scale=None, init: str = "normal",
+            dtype=F32):
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: axes {tuple(axes)} and shape "
+                             f"{tuple(shape)} disagree")
+        dev = self.gen.device
+        if init == "zeros":
+            v = torch.zeros(tuple(shape), dtype=dtype, device=dev)
+        elif init == "ones":
+            v = torch.ones(tuple(shape), dtype=dtype, device=dev)
+        elif init == "normal":
+            v = normal(self.gen, shape, scale=scale, dtype=dtype)
+        elif init == "uniform":
+            s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+            v = (torch.rand(tuple(shape), generator=self.gen, dtype=F32,
+                            device=dev) * (2 * s) - s).to(dtype)
+        else:
+            raise ValueError(init)
+        self.params[name] = v
+        self.axes[name] = tuple(axes)
+        return v
+
+    def sub(self, name, init_fn, *args, **kw):
+        """`init_fn(gen, *args, **kw)` -> (params, axes) under `name`."""
+        p, a = init_fn(self.gen, *args, **kw)
+        self.params[name] = p
+        self.axes[name] = a
+        return p
+
+    def build(self):
+        return self.params, self.axes
+
+
+def map_axes(fn, tree):
+    """Map `fn` over the axes leaves of a tree of dicts, tuples and
+    lists."""
+    if is_axes_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_axes(fn, v) for v in tree)
+    raise TypeError(f"not an axes tree: {type(tree).__name__}")
+
+
+def stacked_axes(axes, n: int = 1):
+    """`axes` with `n` leading "layers" axes (never sharded)."""
+    return map_axes(lambda a: ("layers",) * n + a, axes)
+
+
+def stack_layers(gen: torch.Generator, init_fn, n: int, *args, **kw):
+    """`n` layers of `init_fn(gen, *args, **kw)` -> (params, axes) stacked
+    on a leading (n,) axis, axes with a leading "layers" axis. Layers are
+    drawn one at a time, in order, and copied into the stack, so the
+    transient is one layer, not a second stack."""
+    first, axes = init_fn(gen, *args, **kw)
+    leaves = []
+
+    def alloc(t):
+        out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        out[0].copy_(t)
+        leaves.append(out)
+        return out
+
+    params = tree_map(alloc, first)
+    del first
+    for i in range(1, n):
+        layer, _ = init_fn(gen, *args, **kw)
+        for out, t in zip(leaves, tree_leaves(layer)):
+            out[i].copy_(t)
+    return params, stacked_axes(axes)
+
+
 def zeros(shape, *, layers: int = 0, device=None) -> torch.Tensor:
     full = ((layers,) if layers else ()) + tuple(shape)
     return torch.zeros(full, dtype=F32, device=device)
@@ -49,6 +145,19 @@ def ones(shape, *, layers: int = 0, device=None) -> torch.Tensor:
 
 def init_rms_norm(dim: int, *, layers: int = 0, device=None):
     return {"scale": zeros((dim,), layers=layers, device=device)}
+
+
+def rms_norm_axes():
+    return {"scale": (None,)}
+
+
+def embedding_axes():
+    return {"table": ("vocab", "fsdp")}
+
+
+def mlp_axes():
+    return {"w_gate": ("fsdp", "tensor"), "w_up": ("fsdp", "tensor"),
+            "w_down": ("tensor", "fsdp")}
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
@@ -124,12 +233,62 @@ def padded_vocab(vocab_size: int) -> int:
 
 
 def embed(params, tokens, dtype):
-    return params["table"][tokens].to(dtype)
+    table = params["table"]
+    if is_dtensor(table):
+        return _embed_local_map(table, tokens).to(dtype)
+    return table[tokens].to(dtype)
+
+
+def _embed_local_map(table, tokens):
+    """`table[tokens]` on DTensors under ``local_map``: the table is
+    gathered whole on every rank (an all-gather) and each rank looks up
+    its own tokens; the table's gradient is a partial sum over the mesh
+    axes that split the tokens. (DTensor's rule for the gradient of an
+    indexed lookup, `index_put`, fails on some torch versions.)"""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    tok = tuple(tokens.placements)
+    whole = tuple(Replicate() for _ in tok)
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in tok)
+    with outside_fake_mode():
+        return local_map(lambda t, ids: t[ids], out_placements=(tok,),
+                         in_placements=(whole, tok),
+                         in_grad_placements=(grad, tok),
+                         device_mesh=table.device_mesh,
+                         redistribute_inputs=True)(table, tokens.long())
 
 
 def unembed(params, x):
     """Logits in f32 over the padded vocab."""
-    return dot(x, params["table"].to(x.dtype), "bsd,vd->bsv")
+    table = params["table"]
+    if is_dtensor(table):
+        return _unembed_local_map(table, x)
+    return dot(x, table.to(x.dtype), "bsd,vd->bsv")
+
+
+def _unembed_local_map(table, x):
+    """`unembed` on DTensors under ``local_map``: the tokens split over
+    the batch axes, the table over the vocab, the table gathered over
+    its other axes; each rank computes its block of the logits, split
+    as ("batch", None, "vocab"). The gradients are partial sums over the
+    axes that split the other operand. (DTensor's own plan for this
+    product computes every token's logits on every rank.)"""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    b, s, _ = x.shape
+    xp = named_sharding(("batch", None, None), x.shape, mesh).placements
+    tp = named_sharding(("vocab", None), table.shape, mesh).placements
+    op = named_sharding(("batch", None, "vocab"), (b, s, table.shape[0]),
+                        mesh).placements
+    x_grad = tuple(Partial() if t.is_shard() else p for p, t in zip(xp, tp))
+    t_grad = tuple(Partial() if p.is_shard() else t for p, t in zip(xp, tp))
+    with outside_fake_mode():
+        return local_map(
+            lambda xl, tl: dot(xl, tl.to(xl.dtype), "bsd,vd->bsv"),
+            out_placements=(op,), in_placements=(xp, tp),
+            in_grad_placements=(x_grad, t_grad), device_mesh=mesh,
+            redistribute_inputs=True)(x, table)
 
 
 # --------------------------------------------------------------------------
@@ -151,9 +310,11 @@ def softmax_xent(logits, labels, mask=None, z_loss: float = 1e-4):
     labels (B,S) int; `mask` (B,S) weights the mean."""
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None].long(),
-                                dim=-1)[..., 0]
-    loss = lse - gold
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)
+    # the gathered axis is dropped after the difference, not before: on a
+    # vocab-sharded DTensor the gather is a masked partial sum that only
+    # reduces at its own shape (the values are the same either way)
+    loss = (lse[..., None] - gold)[..., 0]
     if z_loss:
         loss = loss + z_loss * torch.square(lse)
     if mask is None:

@@ -37,13 +37,17 @@ from repro_torch.core.compute_plane import tree_leaves, tree_map
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import (attention, decode_attention,
+from repro_torch.models.attention import (attention, attention_axes,
+                                          decode_attention,
                                           decode_cross_attention,
-                                          init_attention, init_kv_cache)
+                                          init_attention, init_kv_cache,
+                                          kv_cache_axes)
 from repro_torch.models.layers import (F32, apply_rope, dot, embed,
-                                       init_embedding, init_mlp,
-                                       init_rms_norm, mlp, rms_norm,
-                                       softmax_xent, unembed)
+                                       embedding_axes, init_embedding,
+                                       init_mlp, init_rms_norm, mlp,
+                                       mlp_axes, rms_norm, rms_norm_axes,
+                                       softmax_xent, stacked_axes, unembed)
+from repro_torch.runtime.mesh_rules import constrain, is_dtensor, place
 
 
 @dataclass(frozen=True)
@@ -51,11 +55,14 @@ class ModelOptions:
     """Run-time (non-architectural) choices; of the reference's, the port
     reads the MoE path, the attention tiling, the rematerialisation
     policy, the SSD chunk, the sliding-window override and the ring KV
-    cache."""
+    cache, and names the KV cache's sequence axis for the mesh rules."""
     moe_impl: str = "dense"            # "dense" | "ep" (needs a mesh)
     triangular_flash: bool = True      # skip fully-masked causal KV blocks
     flash_threshold: int = 2048
     remat: str = "dots"                # "none" | "full" | "dots"
+    # the decode cache's sequence axis: "kv_seq" | "long_seq" (names it
+    # in `decode_state_axes` only)
+    kv_seq_axis: str = "kv_seq"
     ssd_chunk: int = 256
     window_override: Optional[int] = None  # force sliding window
     # windowed archs keep only the last `window` tokens of KV (cache rows
@@ -135,6 +142,45 @@ def init_model(cfg: ArchConfig, gen: torch.Generator, dtype=F32):
     return params
 
 
+_MIXER_AXES = {MAMBA2: ssm_mod.mamba2_axes, MLSTM: xlstm_mod.mlstm_axes,
+               SLSTM: xlstm_mod.slstm_axes}
+
+
+def _block_axes(cfg, kind, cross: bool = False):
+    """Logical axes of one block of `kind`, laid out as `_init_block`'s
+    parameters."""
+    if kind in _MIXER_AXES:
+        return {"norm1": rms_norm_axes(), "mixer": _MIXER_AXES[kind]()}
+    if kind != ATTN:
+        raise ValueError(kind)
+    a = {"norm1": rms_norm_axes(), "attn": attention_axes(cfg)}
+    if cross:
+        a["norm_x"] = rms_norm_axes()
+        a["xattn"] = attention_axes(cfg, cross=True)
+    a["norm2"] = rms_norm_axes()
+    a["ffn"] = moe_mod.moe_axes() if cfg.is_moe else mlp_axes()
+    return a
+
+
+def param_axes(cfg: ArchConfig):
+    """The logical axes of `init_model(cfg, ...)`'s tree: the same
+    structure, each leaf a tuple of axis names (a stacked run's leaves
+    lead with "layers") — the reference's axes for the leaf that
+    ``convert.params_from_numpy`` maps onto it."""
+    axes = {"embed": embedding_axes(),
+            "runs": tuple(stacked_axes(_block_axes(cfg, kind,
+                                                   cfg.cross_attention))
+                          for kind, _ in _plan(cfg))}
+    if cfg.shared_attn_every:
+        axes["shared_attn"] = _block_axes(cfg, ATTN)
+    if cfg.encoder_layers:
+        axes["encoder"] = {"runs": stacked_axes(_block_axes(cfg, ATTN)),
+                           "norm": rms_norm_axes()}
+    axes["final_norm"] = rms_norm_axes()
+    axes["unembed"] = embedding_axes()
+    return axes
+
+
 # ==========================================================================
 # forward blocks (training / prefill)
 # ==========================================================================
@@ -148,12 +194,12 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
     aux = torch.zeros((), dtype=F32, device=x.device)
     if kind == MAMBA2:
         h = rms_norm(x, p["norm1"]["scale"])
-        return x + ssm_mod.mamba2(p["mixer"], cfg, h, chunk=opt.ssd_chunk), \
-            aux, None
+        return _residual(x + ssm_mod.mamba2(p["mixer"], cfg, h,
+                                            chunk=opt.ssd_chunk)), aux, None
     if kind in (MLSTM, SLSTM):
         fwd = xlstm_mod.mlstm if kind == MLSTM else xlstm_mod.slstm
         h = rms_norm(x, p["norm1"]["scale"])
-        return x + fwd(p["mixer"], cfg, h), aux, None
+        return _residual(x + fwd(p["mixer"], cfg, h)), aux, None
     if kind != ATTN:
         raise ValueError(kind)
     h = rms_norm(x, p["norm1"]["scale"])
@@ -181,7 +227,12 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
         y, aux = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
     else:
         y = mlp(p["ffn"], h)
-    return x + y, aux, kv
+    return _residual(x + y), aux, kv
+
+
+def _residual(x):
+    """The residual stream's constraint: split over the batch."""
+    return constrain(x, ("batch", None, None))
 
 
 _MATMULS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
@@ -311,7 +362,7 @@ def _embed_inputs(params, cfg, batch, opt):
         x = torch.cat([batch["frontend"].to(dtype), x], dim=1)
     elif cfg.frontend == "audio_stub":
         enc = _encode(params, cfg, batch["frontend"], opt)
-    return x, enc
+    return _residual(x), enc
 
 
 def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
@@ -396,6 +447,36 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     return {"runs": tuple(runs)}
 
 
+_STATE_AXES = {MAMBA2: ssm_mod.mamba2_state_axes,
+               MLSTM: xlstm_mod.mlstm_state_axes,
+               SLSTM: xlstm_mod.slstm_state_axes}
+
+
+def decode_state_axes(cfg: ArchConfig, batch: int, max_len: int,
+                      opt: ModelOptions):
+    """The logical axes of `init_decode_state(cfg, batch, max_len, opt)`'s
+    tree; the KV caches' sequence axis is `opt.kv_seq_axis`, whisper's
+    cross cache is ("batch", None, "tensor_kv", None), and the hybrid's
+    mamba states lead with two "layers" axes (groups, per)."""
+    del batch, max_len                   # the axes do not depend on them
+    kv = kv_cache_axes(opt.kv_seq_axis)
+    if cfg.shared_attn_every:
+        return {"runs": (stacked_axes(ssm_mod.mamba2_state_axes(), 2),
+                         stacked_axes(kv))}
+    runs = []
+    for kind, _ in _plan(cfg):
+        if kind == ATTN:
+            a = dict(kv)
+            if cfg.cross_attention:
+                a["xk"] = a["xv"] = ("batch", None, "tensor_kv", None)
+        elif kind in _STATE_AXES:
+            a = _STATE_AXES[kind]()
+        else:
+            raise ValueError(kind)
+        runs.append(stacked_axes(a))
+    return {"runs": tuple(runs)}
+
+
 def _layer(tree, *i):
     """The view at index `i` of the leading axes of a stacked parameter
     or state tree."""
@@ -438,7 +519,7 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
 
     Returns (logits (B, vocab_padded) f32, state)."""
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["embed"], tokens, dtype)
+    x = _residual(embed(params["embed"], tokens, dtype))
     window = _window(cfg, opt)
     if cfg.shared_attn_every:
         gp, groups, per = _zamba_groups(params["runs"][0], cfg)
@@ -477,6 +558,11 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
     x, _, caches = _forward_stack(params, cfg, x, opt, positions=positions,
                                   enc=enc, collect_kv=True)
     state = init_decode_state(cfg, b, max_len, opt, device=x.device)
+    if is_dtensor(x):
+        # a sharded step: the new state is placed by the mesh rules, the
+        # counterpart of the reference's sharding of its output
+        state = place(state, decode_state_axes(cfg, b, max_len, opt),
+                      x.device_mesh)
     for run_state, kv in zip(state["runs"], caches):
         if kv is None:
             continue

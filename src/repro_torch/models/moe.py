@@ -31,7 +31,8 @@ import torch
 from repro_torch.models.layers import F32, dot, normal, silu
 from repro_torch.runtime.mesh_rules import (active_mesh, axis_group,
                                             axis_index, axis_size,
-                                            dp_axis_names, mesh_shape)
+                                            dp_axis_names, is_dtensor,
+                                            mesh_shape, outside_fake_mode)
 
 
 def init_moe(gen: torch.Generator, cfg, *, layers: int = 0, dtype=F32):
@@ -44,6 +45,13 @@ def init_moe(gen: torch.Generator, cfg, *, layers: int = 0, dtype=F32):
             "w_gate": normal(gen, (e, d, f), layers=layers, dtype=dtype),
             "w_up": normal(gen, (e, d, f), layers=layers, dtype=dtype),
             "w_down": normal(gen, (e, f, d), layers=layers, dtype=dtype)}
+
+
+def moe_axes():
+    """Logical axes of `init_moe`'s parameters."""
+    ex = ("experts", "fsdp", None)
+    return {"router": (None, None), "w_gate": ex, "w_up": ex,
+            "w_down": ex}
 
 
 def top_k_lowest_first(x, k: int):
@@ -67,8 +75,13 @@ def _route(params, cfg, x):
     flat = top_i.reshape(-1)
     # integer-valued f32 sums are exact in any order; bincount would read
     # the largest index back to the host
-    counts = torch.zeros((e,), dtype=F32, device=x.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=F32, device=x.device))
+    if is_dtensor(flat):
+        # the same counts through ops every DTensor version propagates
+        counts = (flat[:, None] == torch.arange(e, device=x.device)).to(
+            F32).sum(0)
+    else:
+        counts = torch.zeros((e,), dtype=F32, device=x.device).index_add_(
+            0, flat, torch.ones(flat.shape, dtype=F32, device=x.device))
     load = counts / top_i.numel()
     aux = e * torch.sum(importance * load)
     return top_w, top_i, aux
@@ -287,10 +300,13 @@ def moe_ep(params, cfg, x, axis_name: str = "model"):
                              "mesh takes the dense path, which needs every "
                              "expert's weights")
         return moe_dense(params, cfg, x)
-    axes = [(axis_group(mesh, a), axis_size(mesh, a), axis_index(mesh, a))
-            for a in tspec]
     w, idx, aux = _route(params, cfg, x)
     k = cfg.experts_per_token
+    if is_dtensor(x):
+        return _moe_ep_local_map(params, cfg, x, w, idx, mesh, tspec,
+                                 axis_name), aux
+    axes = [(axis_group(mesh, a), axis_size(mesh, a), axis_index(mesh, a))
+            for a in tspec]
     xl = _Shard.apply(x.reshape(b * s, d), axes)
     idxl = _row_block(idx.reshape(b * s, k), axes)
     wl = _Shard.apply(w.reshape(b * s, k), axes)
@@ -306,6 +322,37 @@ def moe_ep(params, cfg, x, axis_name: str = "model"):
                    wl, *experts)
     y = _Unshard.apply(yl, axes)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_ep_local_map(params, cfg, x, w, idx, mesh, tspec, axis_name):
+    """`moe_ep` on DTensors: the per-rank body under ``local_map``, the
+    counterpart of the reference's ``shard_map``. The tokens (and their
+    routing) are split over the `tspec` mesh axes, the experts over
+    `axis_name`; each rank runs `_ep_local` on its shards and the result
+    comes back split over `tspec`, as DTensor placements say."""
+    import functools
+
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    names = list(mesh_shape(mesh))
+    tok = tuple(Shard(0) if a in tspec else Replicate() for a in names)
+    ex = tuple(Shard(0) if a == axis_name else Replicate() for a in names)
+    body = functools.partial(_ep_local, axis_group(mesh, axis_name),
+                             cfg.num_experts, k, cfg.moe_capacity_factor)
+    xf = x.reshape(b * s, d)
+    args = (xf, idx.reshape(b * s, k), w.reshape(b * s, k),
+            params["w_gate"], params["w_up"], params["w_down"])
+    with outside_fake_mode():
+        y = local_map(body, out_placements=(tok,),
+                      in_placements=(tok, tok, tok, ex, ex, ex),
+                      device_mesh=mesh, redistribute_inputs=True)(*args)
+        # back to the tokens' own placement (the exit all-gather), where
+        # the (B, S) split of the token axis is well defined
+        y = y.redistribute(mesh, tuple(
+            Replicate() if p.is_partial() else p for p in xf.placements))
+    return y.reshape(b, s, d).to(x.dtype)
 
 
 def moe(params, cfg, x, impl: str = "dense"):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import F32, dot, normal, rms_norm, silu
+from repro_torch.runtime.mesh_rules import constrain
 
 
 def _dims(cfg):
@@ -58,6 +59,17 @@ def init_mamba2(gen: torch.Generator, cfg, *, layers: int = 0, dtype=F32):
         "norm": const((d_in,), 0.0),
         "wo": normal(gen, (d_in, d), layers=layers, dtype=dtype),
     }
+
+
+def mamba2_axes():
+    """Logical axes of `init_mamba2`'s parameters."""
+    return {"wz": ("fsdp", "tensor"), "wx": ("fsdp", "tensor"),
+            "wB": ("fsdp", None), "wC": ("fsdp", None),
+            "wdt": ("fsdp", "tensor"), "dt_bias": ("tensor",),
+            "A_log": ("tensor",), "D": ("tensor",),
+            "conv_x": (None, "tensor"), "conv_B": (None, None),
+            "conv_C": (None, None), "norm": ("tensor",),
+            "wo": ("tensor", "fsdp")}
 
 
 def softplus(x):
@@ -139,7 +151,7 @@ def mamba2(params, cfg, x, chunk: int = 256):
     xr = silu(_causal_depthwise_conv(xr, params["conv_x"]))
     br = silu(_causal_depthwise_conv(br, params["conv_B"]))
     cr = silu(_causal_depthwise_conv(cr, params["conv_C"]))
-    xh = xr.reshape(bsz, s, h, p)
+    xh = constrain(xr.reshape(bsz, s, h, p), ("batch", None, "tensor", None))
     a = -torch.exp(params["A_log"].to(F32))
     y, _ = _ssd_chunked(xh, dt, a, br, cr, chunk)
     y = y + xh.to(F32) * params["D"].to(F32)[..., None]
@@ -163,6 +175,12 @@ def init_mamba2_state(cfg, batch: int, *, layers=(), device=None):
         "conv": torch.zeros(lead + (batch, w, d_in + 2 * n),
                             dtype=getattr(torch, cfg.dtype), device=device),
     }
+
+
+def mamba2_state_axes():
+    """Logical axes of one layer's `init_mamba2_state`."""
+    return {"ssm": ("batch", "tensor", None, None),
+            "conv": ("batch", None, None)}
 
 
 def mamba2_decode(params, cfg, x, state):

@@ -77,6 +77,21 @@ def init_mlstm(gen: torch.Generator, cfg, *, layers: int = 0, dtype=F32):
             "w_down": w((d_in, d))}
 
 
+def mlstm_axes():
+    """Logical axes of `init_mlstm`'s parameters."""
+    return {"w_up": ("fsdp", "tensor"), "w_gate": ("fsdp", "tensor"),
+            "wq": ("tensor", None, None), "wk": ("tensor", None, None),
+            "wv": ("tensor", None, None), "wi": ("tensor", None),
+            "wf": ("tensor", None), "bi": (None,), "bf": (None,),
+            "norm": ("tensor",), "w_down": ("tensor", "fsdp")}
+
+
+def mlstm_state_axes():
+    """Logical axes of one layer's `init_mlstm_state`."""
+    return {"C": ("batch", None, None, None), "n": ("batch", None, None),
+            "m": ("batch", None)}
+
+
 def init_mlstm_state(cfg, batch: int, *, layers=(), device=None):
     """Zero decode state: "C" (*layers, B, NH, HD, HD), "n" (..., NH, HD)
     and the stabiliser "m" (..., NH), all f32."""
@@ -228,6 +243,23 @@ def init_slstm(gen: torch.Generator, cfg, *, layers: int = 0, dtype=F32):
     p["ffn_down"] = normal(gen, (dff, d), layers=layers, dtype=dtype)
     p["ffn_norm"] = zeros((d,), layers=layers, device=dev)
     return p
+
+
+def slstm_axes():
+    """Logical axes of `init_slstm`'s parameters."""
+    a = {}
+    for gate in GATES:
+        a[f"w_{gate}"] = ("fsdp", "tensor")
+        a[f"r_{gate}"] = (None, None, None)
+        a[f"b_{gate}"] = (None,)
+    a.update(ffn_gate=("fsdp", "tensor"), ffn_up=("fsdp", "tensor"),
+             ffn_down=("tensor", "fsdp"), ffn_norm=(None,))
+    return a
+
+
+def slstm_state_axes():
+    """Logical axes of one layer's `init_slstm_state`."""
+    return {k: ("batch", None) for k in ("c", "n", "h", "m")}
 
 
 def init_slstm_state(cfg, batch: int, *, layers=(), device=None):

@@ -16,15 +16,27 @@ the entries of the reference's ``PartitionSpec``. A mesh is a
 sizes, see ``launch.mesh``) or any object whose `.shape` is a
 name -> size dict.
 
-Placement in the port is done by explicit collectives over the mesh's
-process groups (`axis_group`): the int8 pod all-gather of the train
-step, GPipe's stage shift, expert parallelism's all-to-all. There is no
-partitioner to hand a constraint to, so `constrain` is the identity.
+A sharding (`named_sharding`) is the mesh and one DTensor placement
+per mesh axis: ``Shard(d)`` on each mesh axis that the spec names for
+tensor dimension d, ``Replicate()`` on the others. A dimension named by
+two mesh axes, e.g. ``("pod", "data")``, is ``Shard(d)`` on both, split
+in mesh-axis order as the reference's spec splits it. The dry run
+places its fake parameters, states and batches by these shardings and
+lets DTensor's sharding propagation stand where the reference's GSPMD
+partitioner stands.
+
+`constrain` redistributes a DTensor activation as the reference's
+constraint places it, and is the identity on a plain tensor.
+
+Everywhere else placement in the port is done by explicit collectives
+over the mesh's process groups (`axis_group`): the int8 pod all-gather
+of the train step, GPipe's stage shift, expert parallelism's
+all-to-all.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 # logical axis -> preferred mesh axes (in priority order; prefix-droppable)
 DEFAULT_RULES = {
@@ -97,6 +109,112 @@ def logical_to_pspec(axes: Sequence[Optional[str]],
     return tuple(spec)
 
 
+class NamedSharding(NamedTuple):
+    """A tensor's sharding: the mesh, the spec (`logical_to_pspec`) and
+    one DTensor placement per mesh axis, in the mesh's axis order."""
+    mesh: object
+    spec: tuple
+    placements: tuple
+
+
+def spec_placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of `spec` on `mesh`, one per mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    owner = {}
+    for dim, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            owner[a] = dim
+    return tuple(Shard(owner[a]) if a in owner else Replicate()
+                 for a in mesh_shape(mesh))
+
+
+def named_sharding(axes, shape, mesh, rules=None) -> NamedSharding:
+    spec = logical_to_pspec(axes, shape, mesh, rules)
+    return NamedSharding(mesh, spec, spec_placements(spec, mesh))
+
+
+def is_axes_leaf(x) -> bool:
+    """A logical-axes leaf: a tuple of axis names or None (`()` for a
+    scalar)."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def zip_axes(fn, axes_tree, tree):
+    """fn(axes, leaf) over an axes tree and a tree of its structure."""
+    if is_axes_leaf(axes_tree):
+        return fn(axes_tree, tree)
+    if isinstance(axes_tree, dict):
+        return {k: zip_axes(fn, v, tree[k]) for k, v in axes_tree.items()}
+    return type(axes_tree)(zip_axes(fn, a, t)
+                           for a, t in zip(axes_tree, tree))
+
+
+def tree_pspecs(axes_tree, shape_tree, mesh, rules=None):
+    """Map a tree of logical-axes tuples + the matching tree of tensors
+    (or anything with `.shape`) to a tree of specs."""
+    return zip_axes(lambda ax, t: logical_to_pspec(ax, t.shape, mesh, rules),
+                    axes_tree, shape_tree)
+
+
+def tree_shardings(axes_tree, shape_tree, mesh, rules=None):
+    """As `tree_pspecs`, to a tree of `NamedSharding`s."""
+    return zip_axes(lambda ax, t: named_sharding(ax, t.shape, mesh, rules),
+                    axes_tree, shape_tree)
+
+
+def place(tree, axes_tree, mesh, rules=None):
+    """Each tensor of `tree` (every rank holding the whole, fake or real)
+    as a DTensor placed on `mesh` by its logical axes; each rank keeps
+    its own shard and nothing is sent. Other leaves (Python ints) stay
+    as they are."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(ax, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        sh = named_sharding(ax, t.shape, mesh, rules)
+        return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+
+    return zip_axes(one, axes_tree, tree)
+
+
+def is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def outside_fake_mode():
+    """A context that sets any active fake mode aside, for a DTensor API
+    called directly (``local_map``, ``redistribute``): DTensor computes
+    shard sizes and offsets on small host tensors, which must be real.
+    Fake shards keep their own mode, so their ops stay fake."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    return unset_fake_temporarily()
+
+
+def run_local(fn, tensors, rest, placements):
+    """`fn(*shards, *rest)` on each rank's local shards of the DTensors
+    `tensors` (redistributed to `placements` first) under ``local_map``,
+    the counterpart of the reference's ``shard_map``; the result is a
+    DTensor of the same placements. Fake shards keep computing under
+    their own fake mode, so the tensors `fn` makes are fake too."""
+    import contextlib
+
+    from torch.distributed.tensor.experimental import local_map
+
+    def body(*shards):
+        mode = getattr(shards[0], "fake_mode", None)
+        with mode if mode is not None else contextlib.nullcontext():
+            return fn(*shards, *rest)
+
+    with outside_fake_mode():
+        return local_map(body, out_placements=(tuple(placements),),
+                         in_placements=(tuple(placements),) * len(tensors),
+                         device_mesh=tensors[0].device_mesh,
+                         redistribute_inputs=True)(*tensors)
+
+
 _ACTIVE_MESH: list = []  # stack managed by use_mesh()
 
 
@@ -148,12 +266,20 @@ def current_rules():
 
 
 def constrain(x, axes, rules=None):
-    """The identity. The reference hands a sharding constraint to its
-    partitioner here; the port has none, and moves data between ranks
-    only by the explicit collectives named in the module docstring, so
-    model code written with `constrain` runs unchanged with or without a
-    mesh."""
-    return x
+    """The reference's sharding constraint. On a DTensor (the dry run,
+    or a step run on DTensors) `x` is redistributed to the placements
+    its logical axes give on its own mesh — DTensor's counterpart of
+    ``with_sharding_constraint``; on a plain tensor it is the identity,
+    so model code runs unchanged with or without a mesh."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = named_sharding(axes, x.shape, mesh,
+                          rules or current_rules()).placements
+    if tuple(x.placements) == want:
+        return x
+    with outside_fake_mode():
+        return x.redistribute(mesh, want)
 
 
 def dp_axis_names(mesh) -> Tuple[str, ...]:

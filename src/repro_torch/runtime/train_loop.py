@@ -47,7 +47,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.runtime.mesh_rules import (active_mesh, axis_group,
                                             axis_index, axis_size,
-                                            mesh_shape)
+                                            is_dtensor, mesh_shape,
+                                            outside_fake_mode)
 
 F32 = torch.float32
 DP_COMPRESS = ("none", "int8")
@@ -63,19 +64,33 @@ class TrainConfig:
     num_pods: int = 1                # pod-major batch splitting for "int8"
 
 
+def _split_leading(x, n: int):
+    """(B, ...) -> (n, B / n, ...). A DTensor split over its batch axis
+    is split per local shard (each rank's rows into n equal parts, the
+    parts then split over the ranks as the rows were): the first split
+    of an axis that the mesh already divides is not a DTensor view. Its
+    parts hold other rows than the plain reshape's, which changes a
+    masked mean's weighting, not the step's cost."""
+    if is_dtensor(x) and any(type(p).__name__ == "Shard" and p.dim == 0
+                             for p in x.placements):
+        from torch.distributed.tensor import DTensor, Shard
+        loc = x.to_local()
+        pl = tuple(Shard(p.dim + 1) if type(p).__name__ == "Shard" else p
+                   for p in x.placements)
+        with outside_fake_mode():
+            return DTensor.from_local(
+                loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:])),
+                x.device_mesh, pl, run_check=False)
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+
+
 def _reshape_micro(batch, n_micro: int):
-    def r(x):
-        b = x.shape[0]
-        return x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
-    return tree_map(r, batch)
+    return tree_map(lambda x: _split_leading(x, n_micro), batch)
 
 
 def split_pods(batch, num_pods: int):
     """The global batch as `num_pods` pod-major sub-batches."""
-    def r(x):
-        return x.reshape((num_pods, x.shape[0] // num_pods)
-                         + tuple(x.shape[1:]))
-    stacked = tree_map(r, batch)
+    stacked = tree_map(lambda x: _split_leading(x, num_pods), batch)
     return [tree_map(lambda x: x[p], stacked) for p in range(num_pods)]
 
 
@@ -181,13 +196,103 @@ def _dequantize_mean(pods_q, like, block: int, group=None, size: int = 1):
 
 def _compressed_pod_sync(grads_stack, num_pods: int, block: int):
     """grads_stack: tree with a leading (num_pods,) axis, every pod on
-    this process.
+    this process — or DTensors whose leading axis is split over the
+    active mesh's `pod` axis (`_pod_sync_local_map`).
 
     int8-quantize each pod's partial gradients per leaf, dequantize and
     average over pods."""
+    if is_dtensor(tree_leaves(grads_stack)[0]):
+        return _pod_sync_local_map(grads_stack, block)
     pods = [tree_map(lambda g: g[p], grads_stack) for p in range(num_pods)]
     return _dequantize_mean([_quantize_pod(g, block) for g in pods],
                             pods[0], block)
+
+
+def _pod_sync_local_map(grads_stack, block: int):
+    """`_compressed_pod_sync` on DTensors, under ``local_map`` (the
+    counterpart of the reference's ``shard_map``): each rank quantizes
+    its local shard of its pods' gradients in `block`-value blocks,
+    all-gathers the int8 payload and scales over the pod axis's group,
+    dequantizes every pod and averages. The result is each leaf without
+    its pod axis, replicated over `pod` and split as before elsewhere.
+    Blocks are taken per local shard, so their boundaries differ from
+    the unsharded sync's (the values agree to the quantization error)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    leaves = tree_leaves(grads_stack)
+    mesh = leaves[0].device_mesh
+    names = list(mesh_shape(mesh))
+    group, size = axis_group(mesh, "pod"), axis_size(mesh, "pod")
+
+    def drop_pod_axis(pl):
+        return tuple(Replicate() if n == "pod" else
+                     (Shard(p.dim - 1) if isinstance(p, Shard) else p)
+                     for n, p in zip(names, pl))
+
+    def body(*stacks):
+        per = stacks[0].shape[0]
+        pods_q = [[quantize_block_int8(s[p], block) for s in stacks]
+                  for p in range(per)]
+        return tuple(_dequantize_mean(pods_q, [s[0] for s in stacks], block,
+                                      group, size))
+
+    with outside_fake_mode():
+        out = local_map(body,
+                        out_placements=tuple(drop_pod_axis(t.placements)
+                                             for t in leaves),
+                        in_placements=tuple(t.placements for t in leaves),
+                        device_mesh=mesh, redistribute_inputs=False)(*leaves)
+    return tree_unflatten(grads_stack, list(out))
+
+
+def _sharded_pod_grads(grads_of, params, batch, tcfg: TrainConfig):
+    """The int8 pod step's gradients on DTensors: this rank's pods are
+    computed on its pod's (data, model) sub-mesh — the parameters are
+    replicated over `pod` and the batch is split pod-major — and their
+    gradients, stacked pod-major over the `pod` axis, go through
+    `_compressed_pod_sync`. Returns (grads on the whole mesh, mean loss
+    over every pod)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = active_mesh()
+    names = list(mesh_shape(mesh))
+    if names[0] != "pod":
+        raise ValueError("the sharded int8 pod sync needs `pod` as the "
+                         "mesh's first axis")
+    sub = mesh[tuple(names[1:])]
+    group, size = axis_group(mesh, "pod"), axis_size(mesh, "pod")
+    per = tcfg.num_pods // size
+
+    def to_sub(t):
+        return DTensor.from_local(t.to_local(), sub, t.placements[1:],
+                                  run_check=False)
+
+    with outside_fake_mode():
+        sub_params = tree_map(to_sub, params)
+        sub_batch = tree_map(to_sub, batch)
+    stacks, losses = None, []
+    for pod_batch in split_pods(sub_batch, per):
+        grads, loss = grads_of(sub_params, pod_batch)
+        with outside_fake_mode():
+            local = [g.redistribute(sub, p.placements).to_local()
+                     for g, p in zip(tree_leaves(grads),
+                                     tree_leaves(sub_params))]
+        stacks = [[x] for x in local] if stacks is None else \
+            [s + [x] for s, x in zip(stacks, local)]
+        losses.append(loss.to_local() if is_dtensor(loss) else loss)
+        del grads
+
+    def lift(parts, p):
+        pl = (Shard(0),) + tuple(Shard(q.dim + 1) if isinstance(q, Shard)
+                                 else q for q in p.placements[1:])
+        return DTensor.from_local(torch.stack(parts), mesh, pl,
+                                  run_check=False)
+
+    with outside_fake_mode():
+        stack = tree_unflatten(params, [lift(s, p) for s, p in
+                                        zip(stacks, tree_leaves(params))])
+    grads = _compressed_pod_sync(stack, tcfg.num_pods, tcfg.quant_block)
+    loss = torch.stack(_gather_pods(losses, group, size)).mean()
+    return grads, loss
 
 
 def make_train_step(cfg: ArchConfig, opt: ModelOptions, tcfg: TrainConfig):
@@ -204,7 +309,11 @@ def make_train_step(cfg: ArchConfig, opt: ModelOptions, tcfg: TrainConfig):
         lr = cosine_schedule(step, peak_lr=tcfg.adamw.lr,
                              warmup_steps=tcfg.warmup_steps,
                              total_steps=tcfg.total_steps)
-        if tcfg.dp_compress == "int8" and tcfg.num_pods > 1:
+        if tcfg.dp_compress == "int8" and tcfg.num_pods > 1 and \
+                is_dtensor(tree_leaves(params)[0]):
+            grads, loss = _sharded_pod_grads(grads_of, params, batch, tcfg)
+            mark("pod_sync")
+        elif tcfg.dp_compress == "int8" and tcfg.num_pods > 1:
             group, size, rank = _pod_axis()
             if tcfg.num_pods % size:
                 raise ValueError(f"{tcfg.num_pods} pods do not split over a "

@@ -43,16 +43,15 @@ through `moe_ep` over the `model` group against `moe_dense`, forward and
 backward (`[moe_ep]`). Then the dry run (`repro_torch.launch`):
 `[dryrun_vs_card]` traces qwen3-1.7b's decode_step (B = 8, a 32768-token
 cache) and `[train]`'s step on fake CUDA tensors with `op_analysis` and
-runs both for real under the same counter (FLOPs equal, argument bytes
-within the allocator's rounding, peak within 10 %, K3's traced calls
-equal its launches, device ms against max(FLOPs / 989.4 TFLOP/s, bytes /
-3.35 TB/s)); `[examples]` runs `repro_torch.examples.quickstart`,
-`serve_paged` and `train_100m` (20 steps, then resumed to 24); and
-`[dryrun_cells]` collects five cells of `launch.dryrun` (qwen3-1.7b
-train_4k, prefill_32k and decode_32k on 16 x 16, train_4k with the int8
-pod sync on 2 x 16 x 16, olmoe-1b-7b decode_32k), each a subprocess on
-the host started when the script starts, every one `ok`. Last it
-runs the request-level simulator (`repro_torch.sim`): the seed golden
+runs both for real under the same counter (the same op stream: FLOPs
+from shapes equal; from the card's allocator: argument bytes within its
+rounding, peak within 10 %; K3's traced calls equal its launches; device
+ms against the step's bound, max(FLOPs / 989.4 TFLOP/s, least bytes /
+3.35 TB/s), the least bytes being each argument read once and what the
+step writes written once); and `[examples]` runs
+`repro_torch.examples.quickstart`, `serve_paged` and `train_100m` (20
+steps, then resumed to 24). Then it runs the request-level simulator
+(`repro_torch.sim`): the seed golden
 (pr and dr, 9 schemes x 3 nets, r = 6000) held to
 tests/golden/seed_movement_golden.json (`[sim_golden]`), every lattice
 axis (schemes x link-profile nets x active compute units x policies,
@@ -63,8 +62,13 @@ conservation (`[sim_axes]`), the same lattice through
 lattice at r = 6000 with its first 200 requests under sync-debug mode
 "error" and 50 under
 torch.profiler (`[sim_fig8]`); the simulator reaches no hand kernel, and
-each phase checks that none was launched. It checks every result and
-imports nothing of JAX or of the reference package.
+each phase checks that none was launched. Last, after every timed
+phase, `[dryrun_cells]` runs five cells of `launch.dryrun` at once, each
+a subprocess on fake CUDA tensors as a user on the card gets them
+(qwen3-1.7b train_4k, prefill_32k and decode_32k on 16 x 16, train_4k
+with the int8 pod sync on 2 x 16 x 16, olmoe-1b-7b decode_32k), every
+one `ok`. It checks every result and imports nothing of JAX or of the
+reference package.
 
 The store's kernels are also timed at the store benchmark's shapes (the
 paged gather at L = 256 rows, with L2 warm and cold; the residency
@@ -2093,23 +2097,23 @@ DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", ()),
                 ("qwen3-1.7b", "train_4k", ("--multi-pod", "--dp-compress",
                                             "int8")),
                 ("olmoe-1b-7b", "decode_32k", ()))
-DRYRUN_WAIT_S = 900                 # the longest a cell may take in all
+DRYRUN_WAIT_S = 420                 # the longest a cell may take in all
 PEAK_BF16_FLOPS = 989.4e12          # H100 SXM dense bf16, FLOP/s (public)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory, bytes/s
 DVC_DECODE = ShapeConfig("dvc_decode", 32768, 8, "decode")
 DVC_PEAK_TOL = 0.10                 # predicted peak against the card's
-FAKE_DEVICE = "cuda"                # [dryrun_vs_card]'s fake tensors
+FAKE_DEVICE = "cuda"                # the dry run's fake tensors here
 
 
 def dryrun_cells_start():
     """Start the dry-run cells, one `python -m repro_torch.launch.dryrun`
-    each, all at once, on the host: CUDA_VISIBLE_DEVICES is empty, so
-    their fake tensors are CPU tensors and no process touches the card
-    (the counterpart of the reference's forced host devices). Returns
-    (their output directory, [(cell, process, log, start time)])."""
+    each, all at once. Their fake tensors are CUDA tensors, as the dry
+    run makes them wherever torch has CUDA; nothing is allocated on the
+    card. Returns (their output directory, [(cell, process, log, start
+    time)])."""
     out = ROOT / "build" / f"dryrun_{os.getpid()}"
     out.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
     procs = []
     for arch, shape, extra in DRYRUN_CELLS:
@@ -2134,10 +2138,13 @@ def dryrun_cells_stop(procs):
 
 
 def dryrun_cells_phase(out, procs):
-    """Wait for each dry-run cell and print its record: status, seconds,
-    TFLOP and HBM bytes per chip, collective wire bytes by kind, and the
-    argument and temporary GiB per chip; for the int8 cell also K3's
-    calls in the traced op list. Any status but "ok" fails."""
+    """Wait for each dry-run cell and print its record: status, fake
+    device, seconds, TFLOP per chip, the eager op stream's and the
+    step's least bytes per chip, collective wire bytes by kind, the
+    argument and temporary GiB per chip, whether the peak fits one
+    card, and the forced reshards; for the int8 cell also K3's calls in
+    the traced op list. Any status but "ok", or fake tensors on another
+    device than the card's, fails."""
     deadline = time.perf_counter() + DRYRUN_WAIT_S
     for (arch, shape, extra), proc, log, t0 in procs:
         proc.wait(max(1.0, deadline - time.perf_counter()))
@@ -2147,6 +2154,9 @@ def dryrun_cells_phase(out, procs):
             raise AssertionError(f"dry-run cell {arch} {shape} {mesh}: "
                                  f"{rec['status']} {rec.get('error')} at "
                                  f"{rec.get('failing_op')}")
+        if rec["device"] != FAKE_DEVICE:
+            raise AssertionError(f"dry-run cell {arch} {shape} {mesh} "
+                                 f"traced on {rec['device']} tensors")
         oa, mem = rec["op_analysis"], rec["memory_analysis"]
         kv = {}
         if "--dp-compress" in extra:
@@ -2165,11 +2175,13 @@ def dryrun_cells_phase(out, procs):
               tflop_per_chip=f"{rec['flops'] / 1e12:.4f}",
               model_tflop_per_chip=(
                   f"{rec['model_flops'] / 1e12 / rec['chips']:.4f}"),
-              hbm_bytes_per_chip=int(rec["bytes_accessed"]),
+              eager_op_bytes_per_chip=int(rec["bytes_accessed"]),
+              bound_bytes_per_chip=int(rec["bound_bytes"]),
               wire_bytes={k: int(v["wire_bytes"])
                           for k, v in oa["collectives"].items()},
               argument_gib=f"{mem['argument_size_in_bytes'] / 2**30:.3f}",
-              temp_gib=f"{mem['temp_size_in_bytes'] / 2**30:.3f}", **kv)
+              temp_gib=f"{mem['temp_size_in_bytes'] / 2**30:.3f}",
+              fits=rec["fits"], reshards=rec["reshards"], **kv)
 
 
 def _storages(tree):
@@ -2180,11 +2192,14 @@ def _storages(tree):
 def _vs_card(title, fake_args, build_real, step_fn, k3=False, **kv):
     """Trace `step_fn` on `fake_args` (fake CUDA tensors) with
     op_analysis, then build the same arguments on the card and run the
-    step once under the same counter: FLOPs equal exactly, the predicted
-    argument bytes equal the allocator's to within its 512-byte rounding,
-    the predicted peak is within 10 % of the card's, and K3's traced
-    calls equal its launches. Then one uncounted step is timed against
-    max(FLOPs / 989.4 TFLOP/s, bytes / 3.35 TB/s)."""
+    step once under the same counter. FLOPs (from shapes on both sides)
+    equal exactly: the traced op stream is the run's. From the card's
+    allocator: the predicted argument bytes equal its own to within its
+    512-byte rounding, and the predicted peak is within 10 % of its
+    peak. K3's traced calls equal its launches. Then one uncounted step
+    is timed against its bound, max(FLOPs / 989.4 TFLOP/s, least bytes /
+    3.35 TB/s), the least bytes being `op_analysis`'s `bound_bytes`;
+    the eager op stream's bytes are printed beside it, not as a bound."""
     fake_counter = OA.OpCounter()
     with fake_mode():
         pred = OA.analyze(step_fn, *fake_args, counter=fake_counter)
@@ -2226,20 +2241,26 @@ def _vs_card(title, fake_args, build_real, step_fn, k3=False, **kv):
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end)
-    roof = max(pred["flops_per_chip"] / PEAK_BF16_FLOPS,
-               pred["hbm_bytes_per_chip"] / HBM_BYTES_PER_S) * 1e3
+    flop_ms = pred["flops_per_chip"] / PEAK_BF16_FLOPS * 1e3
+    byte_ms = pred["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    bound = max(flop_ms, byte_ms)
     phase("dryrun_vs_card", step=title, **kv,
           flops_traced=pred["flops_per_chip"],
           flops_card=real["flops_per_chip"],
-          hbm_bytes_traced=pred["hbm_bytes_per_chip"],
-          hbm_bytes_card=real["hbm_bytes_per_chip"],
+          bound_bytes_traced=pred["bound_bytes"],
+          bound_bytes_card=real["bound_bytes"],
+          eager_op_bytes_traced=pred["eager_op_bytes_per_chip"],
+          eager_op_bytes_card=real["eager_op_bytes_per_chip"],
           argument_bytes_traced=pred["argument_bytes"],
           argument_bytes_allocated=alloc,
           peak_gib_traced=f"{pred['peak_bytes'] / 2**30:.3f}",
           peak_gib_card=f"{peak / 2**30:.3f}", peak_gap=f"{gap:+.4%}",
           k3_traced=traced, k3_launches=launches, ops=pred["num_ops"],
-          device_ms=f"{ms:.3f}", roofline_ms=f"{roof:.3f}",
-          roofline_share=f"{roof / ms:.4f}",
+          device_ms=f"{ms:.3f}", bound_ms=f"{bound:.3f}",
+          bound_by="operations" if flop_ms >= byte_ms else "bytes",
+          bound_share=f"{bound / ms:.4f}",
+          eager_op_bytes_ms=(
+              f"{pred['eager_op_bytes_per_chip'] / HBM_BYTES_PER_S * 1e3:.3f}"),
           peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
           hbm_tb_per_s=HBM_BYTES_PER_S / 1e12)
     del args
@@ -2958,14 +2979,10 @@ def sim_fig8_phase():
 def main():
     name, smi = device_phase()
     build_phase()
-    dr_out, dr_procs = dryrun_cells_start()
-    try:
-        run(name, smi, dr_out, dr_procs)
-    finally:
-        dryrun_cells_stop(dr_procs)
+    run(name, smi)
 
 
-def run(name, smi, dr_out, dr_procs):
+def run(name, smi):
     gen = torch.Generator(device=DEV).manual_seed(0)
     k2 = gather_phase(gen)
     k1_err = residency_phase(gen)
@@ -3047,10 +3064,15 @@ def run(name, smi, dr_out, dr_procs):
     examples_phase()
     gc.collect()
     torch.cuda.empty_cache()
-    dryrun_cells_phase(dr_out, dr_procs)
     sim_golden_phase()
     mesh_lattice_phase(sim_axes_phase())
     sim_fig8_phase()
+    # the cells load the host's cores: after every timed phase
+    dr_out, dr_procs = dryrun_cells_start()
+    try:
+        dryrun_cells_phase(dr_out, dr_procs)
+    finally:
+        dryrun_cells_stop(dr_procs)
     print(smi)
     print(json.dumps({"kernels": [k1, k2, k3q, k3d, k4c, k4d]}))
     print(json.dumps({"ok": True, "device": {

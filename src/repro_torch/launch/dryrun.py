@@ -10,10 +10,16 @@ shows, without hardware:
     own step function runs on them under DTensor's sharding propagation
     (the counterpart of GSPMD);
   * what each chip holds (memory_analysis: arguments, outputs, donated
-    state, peak temporaries);
-  * and what a step costs per chip (``launch.op_analysis``: FLOPs, HBM
-    bytes as operand + result bytes of every op, collective wire bytes by
-    kind).
+    state, peak temporaries) and whether that `fits` in one H100's
+    80 GiB of HBM;
+  * and what a step costs per chip (``launch.op_analysis``: FLOPs, the
+    eager op stream's bytes, the step's least bytes, collective wire
+    bytes by kind).
+
+Where DTensor cannot lower a view of a sharded tensor, the analysis
+replicates the mesh axes it names and retries: `reshards` counts those
+forced reshards (their ops are listed in `op_analysis.reshards`), so a
+plan that needed them says so.
 
 Nothing is allocated on any device: every tensor is fake. A cell that
 cannot be traced is recorded as ``status: "error"`` with the op that
@@ -44,6 +50,7 @@ ROOT = Path(__file__).resolve().parents[3]
 OUT_DIR = ROOT / "dryrun_results" / "torch"
 MESHES = {False: ("pod_16x16", (16, 16)),
           True: ("multipod_2x16x16", (2, 16, 16))}
+HBM_PER_CHIP = 80 * 2**30        # one H100's HBM3, the `fits` line
 
 
 def path_leaves(tree, prefix="", is_leaf=None):
@@ -188,8 +195,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         status="ok", chips=chips, specs_s=round(t_specs, 2),
         trace_s=round(t_trace, 2),
         flops=float(res["flops_per_chip"]),
-        bytes_accessed=float(res["hbm_bytes_per_chip"]),
-        memory_analysis=mem, op_analysis=res, params=counts,
+        bytes_accessed=float(res["eager_op_bytes_per_chip"]),
+        bound_bytes=float(res["bound_bytes"]),
+        memory_analysis=mem, fits=res["peak_bytes"] <= HBM_PER_CHIP,
+        reshards=sum(r["count"] for r in res["reshards"]),
+        op_analysis=res, params=counts,
         model_flops=factor * counts["active_nonembed"] * tokens,
         tokens=tokens)
     return rec

@@ -13,11 +13,16 @@ no HLO: it runs the step eagerly, op by op, and `OpCounter` — a
   reference's analysis reads post-partitioning shapes;
 * FLOPs come from ``torch.utils.flop_counter``'s formulas (matrix
   products, attention, convolutions) on the local shapes;
-* the HBM proxy is each op's operand plus result bytes: every op of an
-  eager step is a kernel boundary, so this is the traffic the step
-  moves; a view (and an uninitialised allocation) counts 0. The
-  reference's structural-op filter stood in for a TPU backend's fusion,
-  which the port does not have;
+* `eager_op_bytes_per_chip` (the counterpart of the reference's
+  ``hbm_bytes_per_chip``) is each op's operand plus result bytes: every
+  op of an eager step is a kernel boundary, so this is the traffic the
+  eager step moves; a view (and an uninitialised allocation) counts 0.
+  It is not a bound: a fusion that removes a copy lowers it;
+* `bound_bytes` is the least the step must move: each argument's
+  storage read once, each argument storage that the step writes in
+  place written once (as many of its bytes as the step writes, at most
+  the whole), and each output that is a new storage written once. With
+  the FLOPs it gives the step's roofline;
 * collectives by kind with the reference's ring estimates: all-reduce
   moves 2x its operand, all-gather its result, reduce-scatter,
   all-to-all and permutes their operand;
@@ -25,9 +30,25 @@ no HLO: it runs the step eagerly, op by op, and `OpCounter` — a
   (``weakref.finalize`` on the storage), so `peak_bytes` is the most
   that the step held at once, arguments included.
 
+Under a fake mode only the step's own ops are counted: those whose
+results (or, for an op without tensor results, operands) are fake
+tensors of the arguments' fake mode. DTensor's own bookkeeping — shard
+sizes on small real host tensors, and the global-shape op it runs once
+per new signature on a fake mode of its own to learn the result's
+shape — is not the step's work, and counting it would make a cell's
+numbers depend on what its process traced before.
+
 In eager mode every layer executes, so there is no trip count to
 correct for. On fake tensors nothing is allocated anywhere; on real
-tensors the same counts describe the run itself.
+tensors the same counts describe the run itself. FLOPs come from shapes
+on both, so traced FLOPs equal to a real run's show that the traced op
+stream is the real one, not a measurement of the card.
+
+Where DTensor cannot lower a view of a sharded tensor (it asks for a
+redistribution where GSPMD would reshard by itself), the counter
+replicates the mesh axes the error names and retries: each such forced
+reshard is recorded (`reshards`: op, global shape, mesh axes, count),
+and its all-gather is counted with the other collectives.
 """
 from __future__ import annotations
 
@@ -75,9 +96,10 @@ _VIEW_ERROR = re.compile(r"unevenly sharded|Attempted to (flatten|split)")
 
 
 def _reshard_for_view(x, msg: str):
-    """`x` with the mesh axes replicated that a failed view's message
+    """(`x` with the mesh axes replicated that a failed view's message
     names — "mesh dimension N", else the tensor "dimension N" that they
-    shard — or None when the message is not a view's."""
+    shard —, those axes' names), or None when the message is not a
+    view's."""
     if not _VIEW_ERROR.search(msg) or not hasattr(x, "placements"):
         return None
     from torch.distributed.tensor import Replicate
@@ -94,7 +116,9 @@ def _reshard_for_view(x, msg: str):
         return None
     for i in axes:
         pl[i] = Replicate()
-    return x.redistribute(x.device_mesh, pl)
+    names = x.device_mesh.mesh_dim_names or tuple(range(x.device_mesh.ndim))
+    return (x.redistribute(x.device_mesh, pl),
+            tuple(str(names[i]) for i in axes))
 
 
 def _tensors(x):
@@ -139,8 +163,12 @@ class OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.flops = 0
-        self.hbm_bytes = 0
+        self.eager_op_bytes = 0
         self.ops = defaultdict(lambda: [0, 0, 0])   # name -> [n, flops, B]
+        # (op, global shape, mesh axes) -> count of forced reshards
+        self.reshards = defaultdict(int)
+        # argument storage -> [bytes, bytes written in place]
+        self._args = WeakIdKeyDictionary()
         self.collectives = defaultdict(lambda: {"count": 0, "wire_bytes": 0,
                                                 "payload_bytes": 0})
         self.live = 0
@@ -148,6 +176,9 @@ class OpCounter(TorchDispatchMode):
         self._seen = WeakIdKeyDictionary()
         self.last_op = None          # the op a failed trace stopped at
         self._lowering = False
+        # the fake mode of the step's tensors (`analyze` sets it); None
+        # counts every op
+        self.fake_mode = None
 
     # ------------------------------------------------------------ memory
     def _free(self, nbytes: int):
@@ -158,8 +189,40 @@ class OpCounter(TorchDispatchMode):
         returns the bytes newly counted."""
         added = 0
         for t in _tensors(tree):
-            added += self._track(_local(t))
+            n = self._track(_local(t))
+            if n:
+                self._args[_local(t).untyped_storage()] = [n, 0]
+            added += n
         return added
+
+    def _note_writes(self, func, args, kwargs):
+        """Add the bytes an in-place op writes into an argument's
+        storage to that storage's written bytes."""
+        schema = getattr(func, "_schema", None)
+        if schema is None or not schema.is_mutable:
+            return
+        for i, a in enumerate(schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            v = kwargs.get(a.name) if a.kwarg_only or i >= len(args) \
+                else args[i]
+            for t in _tensors(v):
+                rec = self._args.get(t.untyped_storage())
+                if rec is not None:
+                    rec[1] += t.numel() * t.element_size()
+
+    def bound_bytes(self, out) -> int:
+        """The least the step moves (module docstring): its argument
+        storages read once, the argument bytes it writes in place (at
+        most each storage) and its new output storages written once."""
+        seen, new = set(), 0
+        for t in _tensors(out):
+            st = _local(t).untyped_storage()
+            if st in self._args or id(st) in seen:
+                continue
+            seen.add(id(st))
+            new += st.nbytes()
+        return sum(n + min(n, w) for n, w in self._args.values()) + new
 
     def _track(self, t) -> int:
         st = t.untyped_storage()
@@ -186,8 +249,16 @@ class OpCounter(TorchDispatchMode):
             with unset_fake_temporarily(), self:
                 return self._lower(func, args, kwargs)
         out = func(*args, **kwargs)
-        self._count(func, args, kwargs, out)
+        if self._is_step_op(args, kwargs, out):
+            self._count(func, args, kwargs, out)
         return out
+
+    def _is_step_op(self, args, kwargs, out) -> bool:
+        if self.fake_mode is None:
+            return True
+        ts = list(_tensors(out)) or list(_tensors((args, kwargs)))
+        return any(getattr(t, "fake_mode", None) is self.fake_mode
+                   for t in ts)
 
     def _lower(self, func, args, kwargs):
         """DTensor's lowering of `func`. Where a view would split or merge
@@ -201,10 +272,11 @@ class OpCounter(TorchDispatchMode):
             try:
                 return func(*args, **kwargs)
             except RuntimeError as e:
-                x = _reshard_for_view(args[0], str(e)) if args else None
-                if x is None:
+                got = _reshard_for_view(args[0], str(e)) if args else None
+                if got is None:
                     raise
-                args = (x,) + tuple(args[1:])
+                self.reshards[(str(func), tuple(args[0].shape), got[1])] += 1
+                args = (got[0],) + tuple(args[1:])
         return func(*args, **kwargs)
 
     def _count(self, func, args, kwargs, out):
@@ -214,6 +286,7 @@ class OpCounter(TorchDispatchMode):
         full = f"{ns}.{name}"
         rec = self.ops[full]
         rec[0] += 1
+        self._note_writes(func, args, kwargs)
         for t in _tensors(out):
             self._track(t)
         if ns in _C10D and name in _COLLECTIVES:
@@ -227,7 +300,7 @@ class OpCounter(TorchDispatchMode):
                 or ns == "prim"):
             nbytes = tensor_bytes((args, kwargs)) + tensor_bytes(out)
         self.flops += fl
-        self.hbm_bytes += nbytes
+        self.eager_op_bytes += nbytes
         rec[1] += fl
         rec[2] += nbytes
 
@@ -246,7 +319,7 @@ class OpCounter(TorchDispatchMode):
         c["wire_bytes"] += wire
         c["payload_bytes"] += max(operand_b, result_b)
         # the reference's HBM proxy adds 2x a collective's result
-        self.hbm_bytes += 2 * result_b
+        self.eager_op_bytes += 2 * result_b
 
     # ------------------------------------------------------------ report
     def summary(self) -> dict:
@@ -254,7 +327,7 @@ class OpCounter(TorchDispatchMode):
                      key=lambda kv: -kv[1])[:8]
         return {
             "flops_per_chip": self.flops,
-            "hbm_bytes_per_chip": self.hbm_bytes,
+            "eager_op_bytes_per_chip": self.eager_op_bytes,
             "collectives": {k: dict(v) for k, v in self.collectives.items()},
             "wire_bytes_per_chip": sum(v["wire_bytes"]
                                        for v in self.collectives.values()),
@@ -262,6 +335,9 @@ class OpCounter(TorchDispatchMode):
                                       for n, f in top],
             "num_ops": sum(r[0] for r in self.ops.values()),
             "peak_bytes": self.peak,
+            "reshards": [{"op": op, "shape": list(shape),
+                          "mesh_axes": list(axes), "count": n}
+                         for (op, shape, axes), n in self.reshards.items()],
         }
 
     def op_list(self) -> list:
@@ -298,14 +374,18 @@ def analyze(fn, *args, counter: OpCounter = None) -> dict:
     """Run `fn(*args)` under an `OpCounter` whose live bytes start with
     the arguments' storages. Returns its summary plus "argument_bytes"
     and "output_bytes" (storage bytes of the arguments and of fn's
-    result); pass `counter` to keep its op list, and fn's result, which
-    it holds as `counter.result`."""
+    result) and "bound_bytes" (`OpCounter.bound_bytes`); pass `counter`
+    to keep its op list, and fn's result, which it holds as
+    `counter.result`."""
     counter = counter or OpCounter()
+    counter.fake_mode = next((t.fake_mode for t in map(_local, _tensors(args))
+                              if hasattr(t, "fake_mode")), None)
     arg_bytes = counter.hold(args)
     with _real_shard_bookkeeping(), counter:
         out = fn(*args)
     rec = counter.summary()
     rec["argument_bytes"] = arg_bytes
     rec["output_bytes"] = storage_bytes(out)
+    rec["bound_bytes"] = counter.bound_bytes(out)
     counter.result = out
     return rec

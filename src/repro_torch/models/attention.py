@@ -19,7 +19,7 @@ import math
 import torch
 
 from repro_torch.models.layers import F32, apply_rope, dot, normal, rms_norm
-from repro_torch.runtime.mesh_rules import constrain, is_dtensor, run_local
+from repro_torch.runtime.mesh_rules import constrain, run_local
 
 NEG_INF = -1e30
 
@@ -194,13 +194,10 @@ def attention(params, cfg, x, *, kv_x=None, positions=None,
         core = functools.partial(_flash_attention, triangular=triangular)
     else:
         core = _direct_attention
-    rest = (positions, kv_positions, causal and not cross, window)
-    if is_dtensor(q):
-        # split over batch and heads only (the constraint above): every
-        # rank attends over its own shards, as a partitioner would
-        out = run_local(core, (q, k, v), rest, q.placements)
-    else:
-        out = core(q, k, v, *rest)
+    # on DTensors split over batch and heads only (the constraint above):
+    # every rank attends over its own shards, as a partitioner would
+    out = run_local(core, (q, k, v),
+                    (positions, kv_positions, causal and not cross, window))
     y = dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
     return constrain(y, ("batch", None, None))
 

@@ -74,14 +74,10 @@ def _route(params, cfg, x):
     importance = probs.mean(dim=(0, 1))
     flat = top_i.reshape(-1)
     # integer-valued f32 sums are exact in any order; bincount would read
-    # the largest index back to the host
-    if is_dtensor(flat):
-        # the same counts through ops every DTensor version propagates
-        counts = (flat[:, None] == torch.arange(e, device=x.device)).to(
-            F32).sum(0)
-    else:
-        counts = torch.zeros((e,), dtype=F32, device=x.device).index_add_(
-            0, flat, torch.ones(flat.shape, dtype=F32, device=x.device))
+    # the largest index back to the host, and DTensor has no rule for an
+    # index_add into a sharded axis on every version
+    counts = (flat[:, None] == torch.arange(e, device=x.device)).to(
+        F32).sum(0)
     load = counts / top_i.numel()
     aux = e * torch.sum(importance * load)
     return top_w, top_i, aux

@@ -193,12 +193,15 @@ def outside_fake_mode():
     return unset_fake_temporarily()
 
 
-def run_local(fn, tensors, rest, placements):
-    """`fn(*shards, *rest)` on each rank's local shards of the DTensors
-    `tensors` (redistributed to `placements` first) under ``local_map``,
-    the counterpart of the reference's ``shard_map``; the result is a
-    DTensor of the same placements. Fake shards keep computing under
-    their own fake mode, so the tensors `fn` makes are fake too."""
+def run_local(fn, tensors, rest):
+    """`fn(*tensors, *rest)`. On DTensors `fn` runs on each rank's local
+    shards under ``local_map``, the counterpart of the reference's
+    ``shard_map``: the tensors are redistributed to the first one's
+    placements and the result is a DTensor of those placements. Fake
+    shards keep computing under their own fake mode, so the tensors `fn`
+    makes are fake too."""
+    if not is_dtensor(tensors[0]):
+        return fn(*tensors, *rest)
     import contextlib
 
     from torch.distributed.tensor.experimental import local_map
@@ -208,9 +211,10 @@ def run_local(fn, tensors, rest, placements):
         with mode if mode is not None else contextlib.nullcontext():
             return fn(*shards, *rest)
 
+    placements = tuple(tensors[0].placements)
     with outside_fake_mode():
-        return local_map(body, out_placements=(tuple(placements),),
-                         in_placements=(tuple(placements),) * len(tensors),
+        return local_map(body, out_placements=(placements,),
+                         in_placements=(placements,) * len(tensors),
                          device_mesh=tensors[0].device_mesh,
                          redistribute_inputs=True)(*tensors)
 

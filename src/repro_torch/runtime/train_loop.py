@@ -47,8 +47,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.runtime.mesh_rules import (active_mesh, axis_group,
                                             axis_index, axis_size,
-                                            is_dtensor, mesh_shape,
-                                            outside_fake_mode)
+                                            constrain, is_dtensor,
+                                            mesh_shape, outside_fake_mode)
 
 F32 = torch.float32
 DP_COMPRESS = ("none", "int8")
@@ -65,23 +65,14 @@ class TrainConfig:
 
 
 def _split_leading(x, n: int):
-    """(B, ...) -> (n, B / n, ...). A DTensor split over its batch axis
-    is split per local shard (each rank's rows into n equal parts, the
-    parts then split over the ranks as the rows were): the first split
-    of an axis that the mesh already divides is not a DTensor view. Its
-    parts hold other rows than the plain reshape's, which changes a
-    masked mean's weighting, not the step's cost."""
-    if is_dtensor(x) and any(type(p).__name__ == "Shard" and p.dim == 0
-                             for p in x.placements):
-        from torch.distributed.tensor import DTensor, Shard
-        loc = x.to_local()
-        pl = tuple(Shard(p.dim + 1) if type(p).__name__ == "Shard" else p
-                   for p in x.placements)
-        with outside_fake_mode():
-            return DTensor.from_local(
-                loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:])),
-                x.device_mesh, pl, run_check=False)
-    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    """(B, ...) -> (n, B / n, ...), part i holding rows [i B/n, (i+1) B/n).
+    A DTensor split over its batch axis is gathered first (the split of
+    a mesh-divided axis is not a DTensor view) and its parts are then
+    split over the batch axes again: the same rows as a plain tensor's,
+    at the cost of one all-gather of the batch."""
+    x = constrain(x, (None,) * x.ndim)
+    y = x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    return constrain(y, (None, "batch") + (None,) * (x.ndim - 1))
 
 
 def _reshape_micro(batch, n_micro: int):
@@ -196,20 +187,18 @@ def _dequantize_mean(pods_q, like, block: int, group=None, size: int = 1):
 
 def _compressed_pod_sync(grads_stack, num_pods: int, block: int):
     """grads_stack: tree with a leading (num_pods,) axis, every pod on
-    this process — or DTensors whose leading axis is split over the
-    active mesh's `pod` axis (`_pod_sync_local_map`).
+    this process.
 
     int8-quantize each pod's partial gradients per leaf, dequantize and
     average over pods."""
-    if is_dtensor(tree_leaves(grads_stack)[0]):
-        return _pod_sync_local_map(grads_stack, block)
     pods = [tree_map(lambda g: g[p], grads_stack) for p in range(num_pods)]
     return _dequantize_mean([_quantize_pod(g, block) for g in pods],
                             pods[0], block)
 
 
 def _pod_sync_local_map(grads_stack, block: int):
-    """`_compressed_pod_sync` on DTensors, under ``local_map`` (the
+    """`_compressed_pod_sync` on DTensors whose leading axis is split
+    over the mesh's `pod` axis, under ``local_map`` (the
     counterpart of the reference's ``shard_map``): each rank quantizes
     its local shard of its pods' gradients in `block`-value blocks,
     all-gathers the int8 payload and scales over the pod axis's group,
@@ -250,7 +239,7 @@ def _sharded_pod_grads(grads_of, params, batch, tcfg: TrainConfig):
     computed on its pod's (data, model) sub-mesh — the parameters are
     replicated over `pod` and the batch is split pod-major — and their
     gradients, stacked pod-major over the `pod` axis, go through
-    `_compressed_pod_sync`. Returns (grads on the whole mesh, mean loss
+    `_pod_sync_local_map`. Returns (grads on the whole mesh, mean loss
     over every pod)."""
     from torch.distributed.tensor import DTensor, Shard
     mesh = active_mesh()
@@ -290,7 +279,7 @@ def _sharded_pod_grads(grads_of, params, batch, tcfg: TrainConfig):
     with outside_fake_mode():
         stack = tree_unflatten(params, [lift(s, p) for s, p in
                                         zip(stacks, tree_leaves(params))])
-    grads = _compressed_pod_sync(stack, tcfg.num_pods, tcfg.quant_block)
+    grads = _pod_sync_local_map(stack, tcfg.quant_block)
     loss = torch.stack(_gather_pods(losses, group, size)).mean()
     return grads, loss
 

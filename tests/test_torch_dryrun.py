@@ -10,6 +10,8 @@ Tolerance of the sharded train step against the unsharded one on the
 same parameters: loss rtol 1e-5, as tests/test_torch_train.py holds the
 loss (f32 sums taken in another order), and every updated parameter
 within 1e-6."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,9 @@ def test_cell_traces_on_a_fake_2x2_world(arch, shape):
     mem = rec["memory_analysis"]
     assert mem["argument_size_in_bytes"] > 0
     assert mem["temp_size_in_bytes"] >= 0
+    assert rec["fits"] is True
+    assert rec["reshards"] == sum(r["count"] for r in oa["reshards"])
+    assert rec["bound_bytes"] >= mem["argument_size_in_bytes"]
     _check_flops(rec)
 
 
@@ -70,6 +75,21 @@ def test_unsharded_cell_has_no_collectives_and_more_flops():
     _check_flops(plain)
     # the decode state is updated in place: donated
     assert plain["memory_analysis"]["alias_size_in_bytes"] > 0
+
+
+def test_cell_counts_do_not_depend_on_earlier_traces():
+    """The first trace of a mesh in a process makes DTensor learn each
+    op's result shape (a global-shape op on a fake mode of its own) and
+    compute shard sizes on real host tensors; none of that is the step's
+    work, so a second trace of the same cell counts the same. The 1x4
+    mesh is traced nowhere else in this module."""
+    recs = [dryrun.run_cell("qwen3-1.7b-reduced", "smoke_decode",
+                            mesh_shape=(1, 4), opt_overrides=FAST)
+            for _ in range(2)]
+    keys = ("flops_per_chip", "eager_op_bytes_per_chip", "bound_bytes",
+            "wire_bytes_per_chip", "num_ops", "peak_bytes")
+    first, second = ({k: r["op_analysis"][k] for k in keys} for r in recs)
+    assert first == second
 
 
 def test_int8_pod_sync_cell_traces_its_kernels_as_custom_ops(tmp_path):
@@ -119,7 +139,8 @@ def test_op_analysis_on_a_real_program():
     res = op_analysis.analyze(lambda p, b: loss_fn(p, cfg, b, opt)[0],
                               params, batch)
     assert res["flops_per_chip"] > 1e6
-    assert res["hbm_bytes_per_chip"] > 0
+    assert res["eager_op_bytes_per_chip"] > 0
+    assert res["bound_bytes"] >= res["argument_bytes"]
     assert res["collectives"] == {} and res["num_ops"] > 100
     assert res["peak_bytes"] >= res["argument_bytes"] > 0
     assert res["top_flop_computations"][0]["flops"] > 0
@@ -132,44 +153,67 @@ SHAPE = ShapeConfig("tiny_train", 32, 4, "train")
 def _sharded_train_rank(rank, world):
     """`input_specs` + `shardings_for` on a 2x2 mesh, and the DTensor
     train step executed for real; then the unsharded step on the same
-    parameters."""
+    parameters. Once with one microbatch (the reduced config's) and once
+    with two, where the sharded step must split the batch into the same
+    rows as the unsharded one (row 1 is mostly masked, so other rows
+    would give another loss)."""
     from torch.distributed.tensor.experimental import implicit_replication
-    cfg = get_config("qwen3-1.7b").reduced()
-    opt = model_options_for(cfg, SHAPE, remat="none")
-    fake, axes = input_specs(cfg, SHAPE, opt, device="cpu")
-
-    def fresh():
-        params = init_model(cfg, torch.Generator().manual_seed(0))
-        batch = synthetic_batch(cfg, SHAPE, DataConfig(seed=0), 0,
-                                device="cpu")
-        return params, adamw_init(params), batch
-
-    params, opt_state, batch = fresh()
-    real_leaves = dryrun.path_leaves((params, opt_state, batch))
-    fake_leaves = dryrun.path_leaves(fake[:3])
-    shapes_match = [(k, tuple(t.shape)) for k, t in real_leaves] == \
-        [(k, tuple(t.shape)) for k, t in fake_leaves]
     mesh = build_mesh((2, 2), ("data", "model"))
-    args = shardings_for((params, opt_state, batch, 0), axes, mesh)
-    step = make_train_step(cfg, opt, TrainConfig())
-    with use_mesh(mesh), implicit_replication():
-        new, _, m = step(*args)
-    loss = m["loss"]
-    loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
-    got = {k: t.full_tensor() for k, t in dryrun.path_leaves(new)}
-    params, opt_state, batch = fresh()
-    ref_params, _, ref = step(params, opt_state, batch, 0)
-    err = max(float((got[k] - t).abs().max())
-              for k, t in dryrun.path_leaves(ref_params))
-    return shapes_match, float(loss), float(ref["loss"]), err
+    out = {}
+    for n_micro in (1, 2):
+        cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                                  grad_accum_microbatches=n_micro)
+        opt = model_options_for(cfg, SHAPE, remat="none")
+        fake, axes = input_specs(cfg, SHAPE, opt, device="cpu")
+
+        def fresh():
+            params = init_model(cfg, torch.Generator().manual_seed(0))
+            batch = synthetic_batch(cfg, SHAPE, DataConfig(seed=0), 0,
+                                    device="cpu")
+            # rows of unequal weight: a microbatch's masked mean then
+            # depends on which rows it holds
+            batch["mask"][1, SHAPE.seq_len // 4:] = 0
+            return params, adamw_init(params), batch
+
+        params, opt_state, batch = fresh()
+        real_leaves = dryrun.path_leaves((params, opt_state, batch))
+        fake_leaves = dryrun.path_leaves(fake[:3])
+        shapes_match = [(k, tuple(t.shape)) for k, t in real_leaves] == \
+            [(k, tuple(t.shape)) for k, t in fake_leaves]
+        args = shardings_for((params, opt_state, batch, 0), axes, mesh)
+        step = make_train_step(cfg, opt, TrainConfig())
+        with use_mesh(mesh), implicit_replication():
+            new, _, m = step(*args)
+        loss = m["loss"]
+        loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+        got = {k: t.full_tensor() for k, t in dryrun.path_leaves(new)}
+        params, opt_state, batch = fresh()
+        ref_params, _, ref = step(params, opt_state, batch, 0)
+        err = max(float((got[k] - t).abs().max())
+                  for k, t in dryrun.path_leaves(ref_params))
+        out[n_micro] = (shapes_match, float(loss), float(ref["loss"]), err)
+    return out
 
 
-def test_sharded_train_step_executes_on_4_gloo_ranks(tmp_path):
-    out = spawn(_sharded_train_rank, 4, tmp_path)
-    for shapes_match, loss, ref, param_err in out:
+@pytest.fixture(scope="module")
+def sharded_train(tmp_path_factory):
+    return spawn(_sharded_train_rank, 4,
+                 tmp_path_factory.mktemp("sharded_train"))
+
+
+def _check_sharded(results):
+    for shapes_match, loss, ref, param_err in results:
         assert shapes_match
         assert np.isfinite(loss)
         np.testing.assert_allclose(loss, ref, rtol=1e-5)
         # the updated parameters (lr 3e-4 steps) agree with the unsharded
         # step's to f32 rounding of the gradient sums
         assert param_err < 1e-6
+
+
+def test_sharded_train_step_executes_on_4_gloo_ranks(sharded_train):
+    _check_sharded([r[1] for r in sharded_train])
+
+
+def test_sharded_train_step_splits_microbatches_as_unsharded(sharded_train):
+    _check_sharded([r[2] for r in sharded_train])

@@ -24,18 +24,12 @@ from repro_torch.models.model import (ModelOptions, decode_state_axes,
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime import mesh_rules
 
-# the reference's GSPMD hill-climb knobs, which have no counterpart here
-NOT_PORTED = ("tp_reduce_bf16", "seq_shard_residual")
-
 
 def model_options_for(cfg: ArchConfig, shape: ShapeConfig,
                       **overrides) -> ModelOptions:
     """The reference's dry-run options: expert parallelism for MoE,
-    remat="full", and the "long_seq" cache axis for `long_*` shapes."""
-    bad = sorted(set(overrides) & set(NOT_PORTED))
-    if bad:
-        raise ValueError(f"{bad}: GSPMD hill-climb options of the reference "
-                         "that the port does not have")
+    remat="full", and the "long_seq" cache axis for `long_*` shapes;
+    `overrides` set any other field (an unknown name raises)."""
     kw = dict(moe_impl="ep" if cfg.is_moe else "dense",
               triangular_flash=True, remat="full")
     if shape.name.startswith("long"):

@@ -18,7 +18,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import F32, apply_rope, dot, normal, rms_norm
+from repro_torch.models.layers import (F32, apply_rope, dot, normal,
+                                       reduced, rms_norm)
 from repro_torch.runtime.mesh_rules import constrain, run_local
 
 NEG_INF = -1e30
@@ -171,10 +172,11 @@ def _flash_attention(q, k, v, qpos, kpos, causal, window,
 
 def attention(params, cfg, x, *, kv_x=None, positions=None,
               kv_positions=None, causal=True, window=0,
-              flash_threshold=2048, triangular=True):
+              flash_threshold=2048, triangular=True, reduce_dtype=None):
     """Full-sequence attention (training / prefill). x: (B,S,D).
-    The reference's `reduce_dtype` (a bf16 tensor-parallel reduce) has
-    no counterpart: the port has no tensor parallelism."""
+    `reduce_dtype` is the output projection's product dtype (default
+    f32), which sets the width of its tensor-parallel all-reduce on
+    DTensors (`layers.reduced`)."""
     b, s, _ = x.shape
     cross = kv_x is not None
     kv_in = kv_x if cross else x
@@ -198,8 +200,10 @@ def attention(params, cfg, x, *, kv_x=None, positions=None,
     # every rank attends over its own shards, as a partitioner would
     out = run_local(core, (q, k, v),
                     (positions, kv_positions, causal and not cross, window))
-    y = dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd").to(x.dtype)
-    return constrain(y, ("batch", None, None))
+    # row-parallel output: reduced at the product's dtype, then cast
+    y = dot(out, params["wo"].to(x.dtype), "bsnh,nhd->bsd",
+            out_dtype=reduce_dtype or F32)
+    return reduced(y).to(x.dtype)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device=None):
@@ -236,7 +240,7 @@ def decode_attention(params, cfg, x, cache, pos: int, *, window: int = 0,
     kx = _expand_kv(cache["k"], cfg)
     vx = _expand_kv(cache["v"], cfg)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    s = dot(q.to(F32), kx.to(F32), "bsnh,btnh->bnst") * scale  # (B,N,1,T)
+    s = dot(q, kx, "bsnh,btnh->bnst") * scale                  # (B,N,1,T)
     kpos = torch.arange(t, device=x.device)
     ok = kpos <= pos
     if window and not ring:

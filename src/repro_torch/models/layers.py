@@ -21,8 +21,8 @@ import math
 import torch
 
 from repro_torch.core.compute_plane import tree_leaves, tree_map
-from repro_torch.runtime.mesh_rules import (is_axes_leaf, is_dtensor,
-                                            named_sharding,
+from repro_torch.runtime.mesh_rules import (constrain, is_axes_leaf,
+                                            is_dtensor, named_sharding,
                                             outside_fake_mode)
 
 F32 = torch.float32
@@ -190,11 +190,19 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
-def dot(a, b, spec):
-    """einsum with f32 accumulation, returned as f32. On f32 inputs this
-    is the reference's f32 product; on bf16 inputs the GEMM accumulates
-    in f32 and rounds its output to bf16 once before the widening."""
-    return torch.einsum(spec, a, b).to(F32)
+def dot(a, b, spec, out_dtype=F32):
+    """einsum with f32 accumulation, returned as `out_dtype` (the
+    reference's `preferred_element_type`). For f32 the operands are
+    widened to f32 first: a bf16 x bf16 product is exact in f32, so the
+    result is the f32 sum of the exact products, never a bf16-rounded
+    GEMM output (f32 products do not use TF32 unless the caller turns
+    `torch.backends.cuda.matmul.allow_tf32` on). A narrower `out_dtype`
+    (bf16, `ModelOptions.tp_reduce_bf16`) is the product in the operands'
+    dtype rounded once to it: on f32 operands the f32 product rounded,
+    as XLA computes it; on bf16 operands the GEMM's own bf16 output."""
+    if out_dtype == F32:
+        return torch.einsum(spec, a.to(F32), b.to(F32))
+    return torch.einsum(spec, a, b).to(out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -294,12 +302,25 @@ def _unembed_local_map(table, x):
 # --------------------------------------------------------------------------
 # SwiGLU MLP
 # --------------------------------------------------------------------------
-def mlp(params, x):
+def mlp(params, x, reduce_dtype=None):
     dtype = x.dtype
     g = dot(x, params["w_gate"].to(dtype), "bsd,df->bsf")
     u = dot(x, params["w_up"].to(dtype), "bsd,df->bsf")
     h = (silu(g) * u).to(dtype)
-    return dot(h, params["w_down"].to(dtype), "bsf,fd->bsd").to(dtype)
+    # row-parallel output: the product's dtype sets the width of the
+    # tensor-parallel all-reduce
+    y = dot(h, params["w_down"].to(dtype), "bsf,fd->bsd",
+            out_dtype=reduce_dtype or F32)
+    return reduced(y).to(dtype)
+
+
+def reduced(y):
+    """A row-parallel product's output, on DTensors summed over the mesh
+    axes that split its contraction (a `Partial` placement) at the
+    product's own dtype. DTensor carries `Partial` through a dtype cast,
+    so without this the sum would cross the link after the cast to the
+    model dtype; the identity on a plain tensor."""
+    return constrain(y, ("batch",) + (None,) * (y.ndim - 1))
 
 
 # --------------------------------------------------------------------------

@@ -52,10 +52,12 @@ from repro_torch.runtime.mesh_rules import constrain, is_dtensor, place
 
 @dataclass(frozen=True)
 class ModelOptions:
-    """Run-time (non-architectural) choices; of the reference's, the port
-    reads the MoE path, the attention tiling, the rematerialisation
-    policy, the SSD chunk, the sliding-window override and the ring KV
-    cache, and names the KV cache's sequence axis for the mesh rules."""
+    """Run-time (non-architectural) choices, the reference's: the MoE
+    path, the attention tiling, the rematerialisation policy, the KV
+    cache's sequence axis for the mesh rules, the SSD chunk, the
+    sliding-window override, the two tensor-parallel knobs
+    (`tp_reduce_bf16`, `seq_shard_residual`, which change what crosses
+    the link only on DTensors) and the ring KV cache."""
     moe_impl: str = "dense"            # "dense" | "ep" (needs a mesh)
     triangular_flash: bool = True      # skip fully-masked causal KV blocks
     flash_threshold: int = 2048
@@ -65,6 +67,13 @@ class ModelOptions:
     kv_seq_axis: str = "kv_seq"
     ssd_chunk: int = 256
     window_override: Optional[int] = None  # force sliding window
+    # row-parallel matmul outputs (attention wo, MLP w_down) accumulate
+    # in bf16 so the tensor-parallel all-reduce crosses the link at half
+    # width (f32 -> bf16)
+    tp_reduce_bf16: bool = False
+    # Megatron-SP: shard the residual stream's seq dim over the model
+    # axis at the end of every block ("seq_sp")
+    seq_shard_residual: bool = False
     # windowed archs keep only the last `window` tokens of KV (cache rows
     # = window, writes at pos % window)
     window_ring: bool = False
@@ -195,17 +204,19 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
     if kind == MAMBA2:
         h = rms_norm(x, p["norm1"]["scale"])
         return _residual(x + ssm_mod.mamba2(p["mixer"], cfg, h,
-                                            chunk=opt.ssd_chunk)), aux, None
+                                            chunk=opt.ssd_chunk),
+                         opt), aux, None
     if kind in (MLSTM, SLSTM):
         fwd = xlstm_mod.mlstm if kind == MLSTM else xlstm_mod.slstm
         h = rms_norm(x, p["norm1"]["scale"])
-        return _residual(x + fwd(p["mixer"], cfg, h)), aux, None
+        return _residual(x + fwd(p["mixer"], cfg, h), opt), aux, None
     if kind != ATTN:
         raise ValueError(kind)
+    rdt = torch.bfloat16 if opt.tp_reduce_bf16 else None
     h = rms_norm(x, p["norm1"]["scale"])
     y = attention(p["attn"], cfg, h, positions=positions, causal=causal,
                   window=window, flash_threshold=opt.flash_threshold,
-                  triangular=opt.triangular_flash)
+                  triangular=opt.triangular_flash, reduce_dtype=rdt)
     kv = None
     if collect_kv:
         dt = h.dtype
@@ -226,13 +237,15 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
     if cfg.is_moe:
         y, aux = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
     else:
-        y = mlp(p["ffn"], h)
-    return _residual(x + y), aux, kv
+        y = mlp(p["ffn"], h, reduce_dtype=rdt)
+    return _residual(x + y, opt), aux, kv
 
 
-def _residual(x):
-    """The residual stream's constraint: split over the batch."""
-    return constrain(x, ("batch", None, None))
+def _residual(x, opt=None):
+    """The residual stream's constraint: split over the batch, and at the
+    end of a block with `opt.seq_shard_residual` over "seq_sp" too."""
+    seq = "seq_sp" if opt is not None and opt.seq_shard_residual else None
+    return constrain(x, ("batch", seq, None))
 
 
 _MATMULS = {torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,

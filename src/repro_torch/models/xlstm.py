@@ -14,7 +14,7 @@ reference rather than the torch defaults:
 - the denominators are max(|n.q|, exp(-m)) (mLSTM) and max(n, 1e-6)
   (sLSTM);
 - an activation in f32 against a weight in the compute type computes in
-  f32, as jnp promotes mixed operands (`_wdot`).
+  f32, as jnp promotes mixed operands (`layers.dot` widens both).
 
 The sLSTM forward is a Python loop over the sequence in chunks, each
 chunk under `torch.utils.checkpoint` while grad is on (the reference's
@@ -36,15 +36,6 @@ GATES = ("z", "i", "f", "o")
 
 def log_sigmoid(x):
     return -softplus(-x)
-
-
-def _wdot(x, w, dtype, spec):
-    """The reference's `dot(x, w.astype(dtype), spec)`: the weight in the
-    compute type, then both operands in their promoted type (an f32
-    activation against a bf16 weight computes in f32)."""
-    w = w.to(dtype)
-    ct = torch.promote_types(x.dtype, w.dtype)
-    return dot(x.to(ct), w.to(ct), spec)
 
 
 # ==========================================================================
@@ -122,14 +113,14 @@ def _mlstm_cell(state, q, k, v, ig, fg):
 def _mlstm_qkvg(params, cfg, x):
     dtype = x.dtype
     d_in, nh, hd = _mlstm_dims(cfg)
-    a = silu(_wdot(x, params["w_up"], dtype, "...d,de->...e"))
-    g = _wdot(x, params["w_gate"], dtype, "...d,de->...e")
-    q = _wdot(a, params["wq"], dtype, "...e,ekh->...kh")
-    k = _wdot(a, params["wk"], dtype, "...e,ekh->...kh") / (hd ** 0.5)
-    v = _wdot(a, params["wv"], dtype, "...e,ekh->...kh")
-    ig = _wdot(a, params["wi"], dtype, "...e,ek->...k") \
+    a = silu(dot(x, params["w_up"].to(dtype), "...d,de->...e"))
+    g = dot(x, params["w_gate"].to(dtype), "...d,de->...e")
+    q = dot(a, params["wq"].to(dtype), "...e,ekh->...kh")
+    k = dot(a, params["wk"].to(dtype), "...e,ekh->...kh") / (hd ** 0.5)
+    v = dot(a, params["wv"].to(dtype), "...e,ekh->...kh")
+    ig = dot(a, params["wi"].to(dtype), "...e,ek->...k") \
         + params["bi"].to(F32)
-    fg = _wdot(a, params["wf"], dtype, "...e,ek->...k") \
+    fg = dot(a, params["wf"].to(dtype), "...e,ek->...k") \
         + params["bf"].to(F32)
     return q, k, v, ig, fg, g
 

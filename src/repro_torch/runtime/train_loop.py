@@ -33,6 +33,7 @@ times the stages synchronises the device there.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -196,27 +197,57 @@ def _compressed_pod_sync(grads_stack, num_pods: int, block: int):
                             pods[0], block)
 
 
+def _block_aligned(leaf_placements, shape, sizes, block: int) -> bool:
+    """Whether each rank's shard of a leaf of `shape` placed by
+    `leaf_placements` (one per mesh axis of `sizes`) is a contiguous,
+    `block`-aligned range of the leaf's row-major flattening: the leaf
+    is whole, or split evenly on dim 0 only into shards of a multiple of
+    `block` values. Such a shard's blocks are the whole leaf's."""
+    from torch.distributed.tensor import Replicate, Shard
+    parts = 1
+    for p, n in zip(leaf_placements, sizes):
+        if isinstance(p, Replicate) or n == 1:
+            continue
+        if type(p) is not Shard or p.dim != 0:
+            return False
+        parts *= n
+    if parts == 1:
+        return True
+    return shape[0] % parts == 0 and math.prod(shape) // parts % block == 0
+
+
 def _pod_sync_local_map(grads_stack, block: int):
     """`_compressed_pod_sync` on DTensors whose leading axis is split
-    over the mesh's `pod` axis, under ``local_map`` (the
-    counterpart of the reference's ``shard_map``): each rank quantizes
-    its local shard of its pods' gradients in `block`-value blocks,
-    all-gathers the int8 payload and scales over the pod axis's group,
-    dequantizes every pod and averages. The result is each leaf without
-    its pod axis, replicated over `pod` and split as before elsewhere.
-    Blocks are taken per local shard, so their boundaries differ from
-    the unsharded sync's (the values agree to the quantization error)."""
+    over the mesh's `pod` axis, under ``local_map`` (the counterpart of
+    the reference's ``shard_map``): each pod's leaf is quantized in the
+    whole leaf's `block`-value blocks, the int8 payload and scales are
+    all-gathered over the pod axis's group, and every pod is dequantized
+    and averaged in pod order, bit-equal to the unsharded sync. A leaf
+    whose shards are block-aligned ranges of it (`_block_aligned`) is
+    quantized shard by shard; any other is first gathered over the
+    other mesh axes, synced whole, and returned in its placements. The
+    result is each leaf without its pod axis, replicated over `pod` and
+    split as before elsewhere."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     leaves = tree_leaves(grads_stack)
     mesh = leaves[0].device_mesh
-    names = list(mesh_shape(mesh))
+    shape = mesh_shape(mesh)
+    names, sizes = list(shape), list(shape.values())
     group, size = axis_group(mesh, "pod"), axis_size(mesh, "pod")
 
     def drop_pod_axis(pl):
         return tuple(Replicate() if n == "pod" else
                      (Shard(p.dim - 1) if isinstance(p, Shard) else p)
                      for n, p in zip(names, pl))
+
+    def whole(pl):
+        return tuple(p if n == "pod" else Replicate()
+                     for n, p in zip(names, pl))
+
+    want = [drop_pod_axis(t.placements) for t in leaves]
+    aligned = [_block_aligned(w, t.shape[1:], sizes, block)
+               for w, t in zip(want, leaves)]
 
     def body(*stacks):
         per = stacks[0].shape[0]
@@ -226,11 +257,15 @@ def _pod_sync_local_map(grads_stack, block: int):
                                       group, size))
 
     with outside_fake_mode():
+        ins = [t if a else t.redistribute(mesh, whole(t.placements))
+               for t, a in zip(leaves, aligned)]
         out = local_map(body,
                         out_placements=tuple(drop_pod_axis(t.placements)
-                                             for t in leaves),
-                        in_placements=tuple(t.placements for t in leaves),
-                        device_mesh=mesh, redistribute_inputs=False)(*leaves)
+                                             for t in ins),
+                        in_placements=tuple(t.placements for t in ins),
+                        device_mesh=mesh, redistribute_inputs=False)(*ins)
+        out = [o if a else o.redistribute(mesh, w)
+               for o, a, w in zip(out, aligned, want)]
     return tree_unflatten(grads_stack, list(out))
 
 
@@ -265,9 +300,13 @@ def _sharded_pod_grads(grads_of, params, batch, tcfg: TrainConfig):
             local = [g.redistribute(sub, p.placements).to_local()
                      for g, p in zip(tree_leaves(grads),
                                      tree_leaves(sub_params))]
+            # the pod's whole loss (a `Partial` loss sums over the
+            # sub-mesh here)
+            if is_dtensor(loss):
+                loss = loss.full_tensor()
         stacks = [[x] for x in local] if stacks is None else \
             [s + [x] for s, x in zip(stacks, local)]
-        losses.append(loss.to_local() if is_dtensor(loss) else loss)
+        losses.append(loss)
         del grads
 
     def lift(parts, p):

@@ -1,5 +1,6 @@
 """The port's training across ranks on gloo: the int8 pod all-gather,
-GPipe's `pipeline_forward` and the expert-parallel MoE, each in spawned
+GPipe's `pipeline_forward` (forward and backward) and the
+expert-parallel MoE, each in spawned
 ranks on the CPU, against the one-process port and the reference.
 
 Ranks rendezvous through a file in `tmp_path` and run one torch thread
@@ -9,7 +10,8 @@ parameters), so both packages compute the same function. Tolerances:
 the pod sync is bit-equal (the same int8 payload on every rank, summed
 in pod order); GPipe against sequential composition atol 1e-5 (the
 reference's oracle, `tests/_distributed_checks.py:85-101`), against the
-reference at S = 1 rtol = atol = 1e-6 (f32 products in another order);
+reference at S = 1 rtol = atol = 1e-6 (f32 products in another order),
+outputs and gradients alike;
 `moe_ep` against `moe_dense` within the reference's own tolerances
 (`_distributed_checks.py:28-55`), and at m = 1 against the reference's
 `moe_ep` within rtol = atol = 1e-5, as the port's dense MoE is held.
@@ -176,6 +178,71 @@ def test_pipeline_forward_one_stage_matches_reference(tmp_path):
                                  jnp.asarray(w[:1]), jnp.asarray(x)))
     (got,) = spawn(_pipe_rank, 1, tmp_path, w[:1], x)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _pipe_cotangent():
+    return np.random.default_rng(1).standard_normal((M, MB, D)).astype(
+        np.float32)
+
+
+def _pipe_loss(out, ct):
+    """The loss every rank computes from the replicated outputs."""
+    return (out * torch.from_numpy(ct)).sum()
+
+
+def _pipe_grad_rank(rank, world, w, x, ct):
+    """pipeline_forward + backward: this stage's weight gradient and the
+    input's gradient (None where the input got none)."""
+    mesh = build_mesh((world,), ("stage",))
+    wi = torch.from_numpy(w[rank]).requires_grad_(True)
+    xm = torch.from_numpy(x).requires_grad_(True)
+    out = pipeline_forward(mesh, _stage_fn, wi, xm)
+    _pipe_loss(out, ct).backward()
+    return (out.detach().numpy(), wi.grad.numpy(),
+            None if xm.grad is None else xm.grad.numpy())
+
+
+def test_pipeline_backward_four_stages_matches_sequential(tmp_path):
+    """Each stage's weight gradient and stage 0's input gradient equal
+    the sequential composition's: the loss is computed identically on
+    every rank, and the gradients are those of one loss, not S times it.
+    The other stages' input gets no gradient."""
+    w, x = _pipe_inputs()
+    ct = _pipe_cotangent()
+    ws = [torch.from_numpy(w[i]).requires_grad_(True) for i in range(S)]
+    xs = torch.from_numpy(x).requires_grad_(True)
+    ref = xs
+    for wi in ws:
+        ref = _stage_fn(wi, ref)
+    _pipe_loss(ref, ct).backward()
+    got = spawn(_pipe_grad_rank, S, tmp_path, w, x, ct)
+    for rank, (out, gw, gx) in enumerate(got):
+        np.testing.assert_allclose(out, ref.detach().numpy(), atol=1e-5)
+        np.testing.assert_allclose(gw, ws[rank].grad.numpy(), atol=1e-5)
+        if rank == 0:
+            np.testing.assert_allclose(gx, xs.grad.numpy(), atol=1e-5)
+        else:
+            assert gx is None or not gx.any()
+
+
+def test_pipeline_backward_one_stage_matches_reference(tmp_path):
+    import jax
+    import jax.numpy as jnp
+    from repro.runtime.pipeline import pipeline_forward as j_pipeline
+    w, x = _pipe_inputs()
+    ct = _pipe_cotangent()
+    mesh = jax.make_mesh((1,), ("stage",), devices=jax.devices()[:1])
+
+    def loss(wj, xj):
+        out = j_pipeline(mesh, lambda wi, xi: jnp.tanh(xi @ wi), wj, xj)
+        return (out * jnp.asarray(ct)).sum()
+
+    gw, gx = jax.grad(loss, argnums=(0, 1))(jnp.asarray(w[:1]),
+                                             jnp.asarray(x))
+    ((_, got_w, got_x),) = spawn(_pipe_grad_rank, 1, tmp_path, w[:1], x, ct)
+    np.testing.assert_allclose(got_w, np.asarray(gw)[0], rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_x, np.asarray(gx), rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------------- moe_ep

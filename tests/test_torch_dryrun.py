@@ -112,14 +112,55 @@ def test_int8_pod_sync_cell_traces_its_kernels_as_custom_ops(tmp_path):
 
 def test_failed_cell_is_an_error_record(tmp_path):
     rc = dryrun.main(["--arch", "qwen3-1.7b-reduced", "--shape",
-                      "smoke_train", "--opt", "tp_reduce_bf16=True",
+                      "smoke_train", "--opt", "no_such_option=True",
                       "--out-dir", str(tmp_path)])
     assert rc == 1
     import json
     rec = json.loads((tmp_path / "qwen3-1.7b-reduced__smoke_train__"
                       "pod_16x16.json").read_text())
-    assert rec["status"] == "error" and "tp_reduce_bf16" in rec["error"]
+    assert rec["status"] == "error" and "no_such_option" in rec["error"]
     assert "Traceback" in rec["traceback"]
+
+
+OPTIONS = {"off": {}, "tp_reduce_bf16": {"tp_reduce_bf16": True},
+           "seq_shard_residual": {"seq_shard_residual": True}}
+
+
+@pytest.fixture(scope="module")
+def option_cells():
+    return {name: dryrun.run_cell("qwen3-1.7b-reduced", "smoke_train",
+                                  mesh_shape=(2, 2),
+                                  opt_overrides={**FAST, **ov})
+            for name, ov in OPTIONS.items()}
+
+
+@pytest.mark.parametrize("name", ["tp_reduce_bf16", "seq_shard_residual"])
+def test_option_cell_traces_on_a_fake_2x2_world(option_cells, name):
+    rec = option_cells[name]
+    assert rec["status"] == "ok", rec
+    assert rec["opt_overrides"][name] is True
+    assert rec["op_analysis"]["wire_bytes_per_chip"] > 0
+    _check_flops(rec)
+
+
+def test_tp_reduce_bf16_halves_the_row_parallel_all_reduces(option_cells):
+    """With tp_reduce_bf16 the row-parallel products (attention's wo and
+    the MLP's w_down, two per layer) are all-reduced over `model` in
+    bf16: the all-reduce wire bytes drop by exactly half of theirs, and
+    no other collective changes."""
+    off = option_cells["off"]["op_analysis"]["collectives"]
+    on = option_cells["tp_reduce_bf16"]["op_analysis"]["collectives"]
+    assert sorted(on) == sorted(off)
+    for kind in off:
+        assert on[kind]["count"] == off[kind]["count"], kind
+        if kind != "all-reduce":
+            assert on[kind]["wire_bytes"] == off[kind]["wire_bytes"], kind
+    cfg = get_config("qwen3-1.7b-reduced")
+    b, s = 2 // 2, 64                  # smoke_train's rows on one data rank
+    products = 2 * cfg.num_layers
+    f32_wire = products * 2 * b * s * cfg.d_model * 4   # 2x operand bytes
+    saved = off["all-reduce"]["wire_bytes"] - on["all-reduce"]["wire_bytes"]
+    assert saved == f32_wire // 2
 
 
 def test_list_prints_the_80_cells(capsys):
@@ -217,3 +258,108 @@ def test_sharded_train_step_executes_on_4_gloo_ranks(sharded_train):
 
 def test_sharded_train_step_splits_microbatches_as_unsharded(sharded_train):
     _check_sharded([r[2] for r in sharded_train])
+
+
+# ------------------------------------------- sharded int8 pod sync
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+
+
+def _odd_stack(rank_mesh=None):
+    """Per-pod gradients (2, ...) of three leaves of another layout than
+    qwen3's: one split on dim 0 into shards of a multiple of the block,
+    one split on dim 0 into 30-value shards (the second starts inside
+    the leaf's only block), one split on its last dim; numpy seeds."""
+    from torch.distributed.tensor import Replicate, Shard
+    rng = np.random.default_rng(7)
+    shapes = [((2, 512, 4), Shard(1)), ((2, 6, 10), Shard(1)),
+              ((2, 8, 6), Shard(2))]
+    plain = [torch.from_numpy((rng.standard_normal(s) * 10.0 ** -k)
+                              .astype(np.float32))
+             for k, (s, _) in enumerate(shapes)]
+    if rank_mesh is None:
+        return plain
+    from torch.distributed.tensor import distribute_tensor
+    return [distribute_tensor(t, rank_mesh, (Shard(0), Replicate(), p))
+            for t, (_, p) in zip(plain, shapes)]
+
+
+def _int8_pod_rank(rank, world):
+    """The int8 train step on a (pod 2, data 1, model 2) mesh, its pod
+    sync's input and output recorded; the unsharded sync on the same
+    per-pod gradients; the sync alone on `_odd_stack`; and the unsharded
+    int8 step on the same parameters and batch."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.core.compute_plane import tree_leaves
+    from repro_torch.runtime import train_loop as TL
+    mesh = build_mesh(*POD_MESH)
+    cfg = get_config("qwen3-1.7b").reduced()
+    opt = model_options_for(cfg, SHAPE, remat="none")
+    _, axes = input_specs(cfg, SHAPE, opt, device="cpu")
+    tcfg = TrainConfig(dp_compress="int8", num_pods=2)
+
+    def fresh():
+        params = init_model(cfg, torch.Generator().manual_seed(0))
+        batch = synthetic_batch(cfg, SHAPE, DataConfig(seed=0), 0,
+                                device="cpu")
+        return params, adamw_init(params), batch
+
+    seen = {}
+    sync = TL._pod_sync_local_map
+
+    def spy(stack, block):
+        out = sync(stack, block)
+        seen["in"] = [t.full_tensor() for t in tree_leaves(stack)]
+        seen["out"] = [t.full_tensor() for t in tree_leaves(out)]
+        return out
+
+    step = make_train_step(cfg, opt, tcfg)
+    args = shardings_for((*fresh(), 0), axes, mesh)
+    TL._pod_sync_local_map = spy
+    try:
+        with use_mesh(mesh), implicit_replication():
+            new, _, m = step(*args)
+    finally:
+        TL._pod_sync_local_map = sync
+    want = TL._compressed_pod_sync(seen["in"], 2, tcfg.quant_block)
+    step_equal = [torch.equal(a, b) for a, b in zip(seen["out"], want)]
+    odd = sync(_odd_stack(mesh), tcfg.quant_block)
+    odd_want = TL._compressed_pod_sync(_odd_stack(), 2, tcfg.quant_block)
+    odd_equal = [torch.equal(a.full_tensor(), b)
+                 for a, b in zip(odd, odd_want)]
+    loss = m["loss"]
+    loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+    got = {k: t.full_tensor() for k, t in dryrun.path_leaves(new)}
+    ref_params, _, ref = step(*fresh(), 0)
+    err = max(float((got[k] - t).abs().max())
+              for k, t in dryrun.path_leaves(ref_params))
+    return step_equal, odd_equal, float(loss), float(ref["loss"]), err
+
+
+def test_block_aligned_shards():
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.runtime.train_loop import _block_aligned
+    sizes = (2, 1, 2)
+    r = Replicate()
+    assert _block_aligned((r, r, r), (6, 10), sizes, 256)
+    assert _block_aligned((r, r, Shard(0)), (512, 4), sizes, 256)
+    assert _block_aligned((r, Shard(1), r), (6, 10), sizes, 256)  # size 1
+    assert not _block_aligned((r, r, Shard(0)), (6, 10), sizes, 256)
+    assert not _block_aligned((r, r, Shard(1)), (512, 4), sizes, 256)
+    assert not _block_aligned((r, r, Shard(0)), (3, 512), sizes, 256)
+
+
+def test_sharded_int8_pod_sync_is_bit_equal_to_unsharded(tmp_path):
+    """On a (pod 2, data 1, model 2) mesh the sharded pod sync quantizes
+    in the whole leaf's blocks: its result is bit-equal to the unsharded
+    sync's on the same per-pod gradients, for qwen3's leaves (split on
+    dim 0, on inner dims, or whole) inside the train step and for
+    `_odd_stack`'s. The step's loss and parameters agree with the
+    unsharded int8 step's as the (data, model) step's do (the
+    tensor-parallel products sum in another order)."""
+    for step_equal, odd_equal, loss, ref, err in spawn(_int8_pod_rank, 4,
+                                                       tmp_path):
+        assert len(step_equal) == 14 and all(step_equal)
+        assert odd_equal == [True] * 3
+        np.testing.assert_allclose(loss, ref, rtol=1e-5)
+        assert err < 1e-6

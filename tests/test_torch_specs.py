@@ -158,9 +158,13 @@ def test_model_options_for_keeps_the_reference_choices():
     assert (o.moe_impl, o.remat, o.kv_seq_axis) == ("ep", "full", "kv_seq")
     o = specs.model_options_for(dense, get_shape("long_500k"))
     assert (o.moe_impl, o.kv_seq_axis) == ("dense", "long_seq")
-    with pytest.raises(ValueError, match="tp_reduce_bf16"):
+    o = specs.model_options_for(dense, get_shape("train_4k"),
+                                tp_reduce_bf16=True, seq_shard_residual=True)
+    assert (o.tp_reduce_bf16, o.seq_shard_residual, o.remat) == \
+        (True, True, "full")
+    with pytest.raises(TypeError, match="no_such_option"):
         specs.model_options_for(dense, get_shape("train_4k"),
-                                tp_reduce_bf16=True)
+                                no_such_option=True)
     assert dryrun.parse_opt("remat=none,ssd_chunk=64,window_ring=True") == \
         {"remat": "none", "ssd_chunk": 64, "window_ring": True}
 

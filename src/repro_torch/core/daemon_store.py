@@ -678,36 +678,45 @@ def _step(seqs: SeqState, fab: FabricState, clock, cfg: KVStoreConfig,
           nic=None, cus=None, active=None):
     """One decode step for the stacked sequences (`needed_pages` (B, R));
     `clock` is the step's (already advanced) time. Returns (seqs', fab',
-    nic', k (B,R,page,KV,D), v, served_local (B,R) bool)."""
+    nic', k (B,R,page,KV,D), v, served_local (B,R) bool). Its layer
+    spans (``telemetry.span``): `store.step` and its five parts."""
     b, r = needed_pages.shape
-    pol = residency.as_policy(cfg.policy if policy is None else policy,
-                              device=clock.device)
-    seqs, evicted, k_local, v_local, local_hit = _residency(
-        seqs, cfg, remote_k, remote_v, clock, pol, needed_pages, writes)
-    k_remote, v_remote = _remote_fetch(remote_k, remote_v,
-                                       needed_pages.reshape(-1),
-                                       ~local_hit.reshape(-1),
-                                       _ops_impl(cfg))
-    row = tuple(k_remote.shape[1:])
-    k_remote = k_remote.reshape((b, r) + row)
-    v_remote = v_remote.reshape((b, r) + row)
-    sel = local_hit.reshape((b, r) + (1,) * len(row))
-    k = torch.where(sel, k_local.to(k_remote.dtype), k_remote)
-    v = torch.where(sel, v_local.to(v_remote.dtype), v_remote)
+    with telemetry.span("store.step", requests=b * r):
+        pol = residency.as_policy(cfg.policy if policy is None else policy,
+                                  device=clock.device)
+        with telemetry.span("store.residency"):
+            seqs, evicted, k_local, v_local, local_hit = _residency(
+                seqs, cfg, remote_k, remote_v, clock, pol, needed_pages,
+                writes)
+        with telemetry.span("store.remote_fetch"):
+            k_remote, v_remote = _remote_fetch(remote_k, remote_v,
+                                               needed_pages.reshape(-1),
+                                               ~local_hit.reshape(-1),
+                                               _ops_impl(cfg))
+            row = tuple(k_remote.shape[1:])
+            k_remote = k_remote.reshape((b, r) + row)
+            v_remote = v_remote.reshape((b, r) + row)
+            sel = local_hit.reshape((b, r) + (1,) * len(row))
+            k = torch.where(sel, k_local.to(k_remote.dtype), k_remote)
+            v = torch.where(sel, v_local.to(v_remote.dtype), v_remote)
 
-    page_wire = _wire_bytes(cfg, cfg.page_tokens, cfg.compress_pages)
-    eng, fab, n_wb = _writebacks(seqs.eng, fab, cfg, evicted, clock,
-                                 page_wire)
-    if nic is not None:
-        nic = _nic_writebacks(nic, n_wb, cus, active, clock, page_wire)
-    eng, fab, nic, line_sent, page_sent, stalls, seen = _schedule(
-        eng, fab, cfg, needed_pages, offs, local_hit, clock, nic=nic,
-        cus=cus, active=active)
-    stats = _stats_fold(seqs.stats, cfg, line_sent, page_sent, stalls,
-                        local_hit, n_wb)
-    tel = _record_telemetry(seqs.tel, cfg, stalls, local_hit, stats, seen,
-                            fab.link, clock)
-    seqs = seqs._replace(eng=eng, stats=stats, tel=tel)
+        page_wire = _wire_bytes(cfg, cfg.page_tokens, cfg.compress_pages)
+        with telemetry.span("store.writebacks"):
+            eng, fab, n_wb = _writebacks(seqs.eng, fab, cfg, evicted, clock,
+                                         page_wire)
+            if nic is not None:
+                nic = _nic_writebacks(nic, n_wb, cus, active, clock,
+                                      page_wire)
+        with telemetry.span("store.schedule"):
+            eng, fab, nic, line_sent, page_sent, stalls, seen = _schedule(
+                eng, fab, cfg, needed_pages, offs, local_hit, clock, nic=nic,
+                cus=cus, active=active)
+        with telemetry.span("store.fold"):
+            stats = _stats_fold(seqs.stats, cfg, line_sent, page_sent,
+                                stalls, local_hit, n_wb)
+            tel = _record_telemetry(seqs.tel, cfg, stalls, local_hit, stats,
+                                    seen, fab.link, clock)
+        seqs = seqs._replace(eng=eng, stats=stats, tel=tel)
     return seqs, fab, nic, k, v, local_hit
 
 

@@ -21,14 +21,25 @@ Every instrument takes an optional leading batch axis (the store keeps
 one histogram and one ring per tenant). The bin index stays in f32, as
 the reference computes it; the reference's dropping scatters become
 masked adds.
+
+`span(name, **counts)` marks a layer boundary of the host loops (the
+serve loops, the model's decode, the store's step and its parts; the
+names are in ``runtime.obs``). It is off by default: with no recorder
+active (`recording`, which ``runtime.obs.SpanRecorder.active`` enters)
+and no `torch.profiler` running it returns one shared no-op context.
+Otherwise it records on the active recorder and, under a profiler,
+opens a `record_function` range of the same name. A span never
+synchronises the device and never reads a device value.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 F32 = torch.float32
 
@@ -223,3 +234,56 @@ def series_rows(tel: TelemetryState, cfg: TelemetryConfig):
     steps = (first + np.arange(rows.shape[0], dtype=np.int64)) \
         * cfg.series_every
     return steps, rows.astype(np.float32)
+
+
+# ----------------------------------------------------------------- spans
+CALL_SPAN = "serve.call"   # the span whose id is its spans' `call`
+_recorder = None           # the recorder `span` records on, or None
+_NO_SPAN = nullcontext()
+
+
+@contextmanager
+def recording(recorder):
+    """Make `recorder` (a ``runtime.obs.SpanRecorder``) the one `span`
+    records on, process-wide, for the block; the one active before comes
+    back after it."""
+    global _recorder
+    before, _recorder = _recorder, recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = before
+
+
+class _Span:
+    """One open span: an event of the active recorder and, under a
+    profiler, a `record_function` range inside it."""
+    __slots__ = ("rec", "name", "args", "token", "range")
+
+    def __init__(self, rec, name: str, args: dict):
+        self.rec, self.name, self.args = rec, name, args
+        self.token = self.range = None
+
+    def __enter__(self):
+        if self.rec is not None:
+            self.token = self.rec.open_span(self.name, self.args)
+        if _profiler._is_profiler_enabled:
+            self.range = _profiler.record_function(self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.rec is not None:
+            self.rec.close_span(self.token)
+        return False
+
+
+def span(name: str, **args):
+    """A context around one layer's work at its boundary; `args` are the
+    counts recorded there (host ints, never device values)."""
+    rec = _recorder
+    if rec is None and not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(rec, name, args)

@@ -122,7 +122,7 @@ def tenant_capacity_demo(device, trace_out: str, steps: int = 120):
     for b, pid in ((0, 1), (1, 2)):
         tel = tree_map(lambda x: x[b], state.seqs.tel)
         counters += obs.counter_events(tel, cfg.telemetry, SERIES_CHANNELS,
-                                       pid=pid)
+                                       pid=pid, t0_us=rec.events[0]["ts"])
     obs.trace_export(trace_out, spans=rec.events, counters=counters,
                      metadata={"tenant-replay": 0, "tenant-0 squeezed": 1,
                                "tenant-1 roomy": 2})

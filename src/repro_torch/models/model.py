@@ -33,6 +33,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ATTN, MAMBA2, MLSTM, SLSTM, ArchConfig
+from repro_torch.core import telemetry
 from repro_torch.core.compute_plane import tree_leaves, tree_map
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -529,29 +530,34 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
                 opt: ModelOptions):
     """One decode step. tokens: (B,1) int; pos: the Python int position.
     The KV caches and recurrent states in `state` are written in place.
+    Its layer span (``telemetry.span``) is `model.decode`.
 
     Returns (logits (B, vocab_padded) f32, state)."""
-    dtype = getattr(torch, cfg.dtype)
-    x = _residual(embed(params["embed"], tokens, dtype))
-    window = _window(cfg, opt)
-    if cfg.shared_attn_every:
-        gp, groups, per = _zamba_groups(params["runs"][0], cfg)
-        m_state, sa_state = state["runs"]
-        x0 = x
-        for g in range(groups):
-            for i in range(per):
-                x, _ = _decode_block(MAMBA2, _layer(gp, g, i), cfg, x,
-                                     _layer(m_state, g, i), pos, opt, window)
-            x, _ = _decode_block(ATTN, params["shared_attn"], cfg, x + x0,
-                                 _layer(sa_state, g), pos, opt, window)
-    else:
-        for (kind, count), run_params, run_state in zip(
-                _plan(cfg), params["runs"], state["runs"]):
-            for i in range(count):
-                x, _ = _decode_block(kind, _layer(run_params, i), cfg, x,
-                                     _layer(run_state, i), pos, opt, window)
-    x = rms_norm(x, params["final_norm"]["scale"])
-    logits = unembed(params["unembed"], x)[:, 0, :]
+    with telemetry.span("model.decode", batch=tokens.shape[0]):
+        dtype = getattr(torch, cfg.dtype)
+        x = _residual(embed(params["embed"], tokens, dtype))
+        window = _window(cfg, opt)
+        if cfg.shared_attn_every:
+            gp, groups, per = _zamba_groups(params["runs"][0], cfg)
+            m_state, sa_state = state["runs"]
+            x0 = x
+            for g in range(groups):
+                for i in range(per):
+                    x, _ = _decode_block(MAMBA2, _layer(gp, g, i), cfg, x,
+                                         _layer(m_state, g, i), pos, opt,
+                                         window)
+                x, _ = _decode_block(ATTN, params["shared_attn"], cfg,
+                                     x + x0, _layer(sa_state, g), pos, opt,
+                                     window)
+        else:
+            for (kind, count), run_params, run_state in zip(
+                    _plan(cfg), params["runs"], state["runs"]):
+                for i in range(count):
+                    x, _ = _decode_block(kind, _layer(run_params, i), cfg, x,
+                                         _layer(run_state, i), pos, opt,
+                                         window)
+        x = rms_norm(x, params["final_norm"]["scale"])
+        logits = unembed(params["unembed"], x)[:, 0, :]
     return logits, state
 
 

@@ -4,18 +4,48 @@ Chrome trace-event JSON (Perfetto-loadable) and a text summary.
 PyTorch counterpart of ``repro.runtime.obs``; the instruments themselves
 are ``repro_torch.core.telemetry``.
 
-- `SpanRecorder`: wall-clock "X" (complete) events around host loop
-  phases. A span synchronizes the device of the tensors handed to it in
-  `sync` before it closes, so its duration covers the device work the
-  phase queued; nothing is read back to the host.
+- `SpanRecorder`: "X" (complete) events. `span(...)` is the serve loops'
+  phase span (`prefill`, `decode`, `decode_step`): it synchronizes the
+  device of the tensors handed to it in `sync` before it closes, so its
+  duration covers the device work the phase queued; nothing is read
+  back to the host.
 - `counter_events` / `trace_export`: spans plus one "C" counter track per
   series channel in one ``{"traceEvents": [...]}`` document, with the
   reference's event schema; counters sit on a synthetic
-  steps-as-microseconds timebase.
+  steps-as-microseconds timebase from `t0_us`.
 - `summary`: percentiles and the last series row as text.
+
+Turning the layer spans on: ``with rec.active(): serve_batch_paged(...)``
+makes `rec` the recorder of ``core.telemetry.span`` for the block. The
+port then records, with `args` holding the span's `id`, its enclosing
+span's id as `parent`, the id of the `serve.call` it sits under as
+`call`, and the counts of its boundary:
+
+- `serve.call`: one call of `serve_batch`, `serve_batch_paged` or
+  `serve_replicated` (entry, batch, prompt, new_tokens);
+- `serve.step`: each token step of those loops (phase, step, tokens);
+- `model.decode`: `models.model.decode_step` (batch);
+- `store.step`: the store's step, `daemon_store._step` (requests), and
+  inside it its parts `store.residency` (the residency transaction),
+  `store.remote_fetch`, `store.writebacks`, `store.schedule` and
+  `store.fold` (the stats fold and the telemetry record).
+
+Off (no recorder active, no profiler running) each is one shared no-op
+context. A layer span never synchronizes: its duration is host time,
+from entering the layer to handing back its queued work; the device
+time of a layer is what a `torch.profiler` trace attributes to it (under
+a running profiler every span is also a `record_function` range of its
+name, so a kernel's launch call falls inside it). The recorder keeps one
+stack of open spans, so it records one thread's loops.
+
+Clock: every event, the phase spans' too, is stamped in microseconds of
+Unix-epoch time (`time.time_ns`), the base of the `start_ns()` that
+`torch.profiler`'s kineto events carry, so a span lines up with the
+device trace and with the profiler's own Chrome export.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import time
 from contextlib import contextmanager
@@ -24,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.core.compute_plane import tree_leaves, tree_map
 from repro_torch.core.telemetry import (TelemetryConfig, TelemetryState,
                                         percentiles_from_state, series_rows)
@@ -39,40 +70,55 @@ def _synchronize(tree):
 
 
 class SpanRecorder:
-    """Collects Chrome trace "X" (complete) events on a host wall clock
-    relative to construction time. `span(...)` yields a dict; a tree of
-    tensors stored under "sync" is waited for before the span closes."""
+    """Collects Chrome trace "X" (complete) events stamped in Unix-epoch
+    microseconds. `span(...)` yields a dict; a tree of tensors stored
+    under "sync" is waited for before the span closes. `active()` makes
+    the recorder the target of ``core.telemetry.span`` for a block."""
 
     def __init__(self, pid: int = 0):
         self.pid = pid
         self.events: list = []
-        self._t0 = time.perf_counter()
+        self._open: list = []          # (id, call) of the open layer spans
+        self._ids = itertools.count(1)
 
-    def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+    def _event(self, name, t_start_ns, tid, args) -> dict:
+        return {"name": name, "ph": "X", "ts": t_start_ns / 1e3,
+                "dur": (time.time_ns() - t_start_ns) / 1e3,
+                "pid": self.pid, "tid": tid,
+                "args": {k: _jsonable(v) for k, v in args.items()}}
 
     @contextmanager
     def span(self, name: str, tid: int = 0, **args):
-        t_start = self._now_us()
+        t_start = time.time_ns()
         sync = {}
         try:
             yield sync
         finally:
             if sync.get("sync") is not None:
                 _synchronize(sync["sync"])
-            self.events.append({
-                "name": name, "ph": "X", "ts": t_start,
-                "dur": self._now_us() - t_start,
-                "pid": self.pid, "tid": tid,
-                "args": {k: _jsonable(v) for k, v in args.items()},
-            })
+            self.events.append(self._event(name, t_start, tid, args))
 
-    def instant(self, name: str, tid: int = 0, **args):
-        self.events.append({
-            "name": name, "ph": "i", "ts": self._now_us(), "s": "t",
-            "pid": self.pid, "tid": tid,
-            "args": {k: _jsonable(v) for k, v in args.items()},
-        })
+    def active(self):
+        """Context: this recorder takes ``core.telemetry.span``'s layer
+        spans for the block."""
+        return telemetry.recording(self)
+
+    def open_span(self, name: str, counts: dict):
+        """Enter a layer span (``core.telemetry.span``); returns the
+        token `close_span` takes."""
+        sid = next(self._ids)
+        parent, call = self._open[-1] if self._open else (None, None)
+        if name == telemetry.CALL_SPAN:
+            call = sid
+        self._open.append((sid, call))
+        return name, counts, sid, parent, call, time.time_ns()
+
+    def close_span(self, token):
+        name, counts, sid, parent, call, t_start = token
+        self._open.pop()
+        self.events.append(self._event(
+            name, t_start, 0, {"id": sid, "parent": parent, "call": call,
+                               **counts}))
 
 
 def _jsonable(v):

@@ -21,7 +21,10 @@ does):
 A `runtime.obs.SpanRecorder` (passed in, or made when the store's
 telemetry level is "trace") captures prefill and decode spans; they come
 back in the ledger as `trace_spans`, and the store's telemetry state as
-`_tel`. `serve_replicated(mesh=)` places the replicas on the ranks of a
+`_tel`. Each loop also opens the layer spans of ``core.telemetry.span``
+(off unless a recorder is active or a profiler runs): `serve.call`
+around the call and `serve.step` around each token step.
+`serve_replicated(mesh=)` places the replicas on the ranks of a
 process-group mesh (`runtime.mesh_plane`). Everything runs on the card
 unless the caller passes device="cpu".
 """
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import residency
+from repro_torch.core import residency, telemetry
 from repro_torch.core.daemon_store import (KVStoreConfig,
                                            init_kv_store_batch,
                                            init_kv_store_replicated,
@@ -76,6 +79,18 @@ def _span(rec, name, **args):
     return nullcontext({}) if rec is None else rec.span(name, **args)
 
 
+def _call_span(entry: str, batch: int, prompt: int, scfg: ServeConfig):
+    """The `serve.call` layer span of one call of a serve loop."""
+    return telemetry.span(telemetry.CALL_SPAN, entry=entry, batch=batch,
+                          prompt=prompt, new_tokens=scfg.max_new_tokens)
+
+
+def _step_span(phase: str, step: int, tokens: int):
+    """The `serve.step` layer span of one token step (`tokens` rows)."""
+    return telemetry.span("serve.step", phase=phase, step=step,
+                          tokens=tokens)
+
+
 def make_decode_fn(cfg: ArchConfig, opt: ModelOptions):
     """step(params, state, tokens, pos, gen, temperature) -> (next (B,1)
     int32, state): greedy argmax over the logical vocab, or a sample at
@@ -104,26 +119,29 @@ def serve_batch(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
     opt = opt or ModelOptions(remat="none")
     prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
     b, p = prompts.shape
-    state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
-                              device=device)
-    step = make_decode_fn(cfg, opt)
-    gen = torch.Generator(device=device).manual_seed(scfg.seed)
-    # zero-length prompts skip prefill and decode from a BOS-like token 0
-    nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
-    with _span(recorder, "prefill", tokens=p) as sp:
-        for i in range(p):
-            nxt, state = step(params, state, prompts[:, i:i + 1], i, gen,
-                              scfg.temperature)
-        sp["sync"] = nxt
-    tok = nxt
-    out = [prompts]
-    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
-        for i in range(scfg.max_new_tokens):
-            out.append(tok)
-            tok, state = step(params, state, tok, p + i, gen,
-                              scfg.temperature)
-        sp["sync"] = tok
-    return torch.cat(out, dim=1)
+    with _call_span("serve_batch", b, p, scfg):
+        state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
+                                  device=device)
+        step = make_decode_fn(cfg, opt)
+        gen = torch.Generator(device=device).manual_seed(scfg.seed)
+        # zero-length prompts skip prefill and decode from a BOS-like token 0
+        nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
+        with _span(recorder, "prefill", tokens=p) as sp:
+            for i in range(p):
+                with _step_span("prefill", i, b):
+                    nxt, state = step(params, state, prompts[:, i:i + 1], i,
+                                      gen, scfg.temperature)
+            sp["sync"] = nxt
+        tok = nxt
+        out = [prompts]
+        with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+            for i in range(scfg.max_new_tokens):
+                with _step_span("decode", i, b):
+                    out.append(tok)
+                    tok, state = step(params, state, tok, p + i, gen,
+                                      scfg.temperature)
+            sp["sync"] = tok
+        return torch.cat(out, dim=1)
 
 
 def paged_request_window(positions, seq_ids, page_tokens: int,
@@ -174,53 +192,57 @@ def serve_batch_paged(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
     recorder = _maybe_recorder(recorder, store_cfg)
     prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
     b, p = prompts.shape
-    state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
-                              device=device)
-    step = make_decode_fn(cfg, opt)
-    gen = torch.Generator(device=device).manual_seed(scfg.seed)
+    with _call_span("serve_batch_paged", b, p, scfg):
+        state = init_decode_state(cfg, b, p + scfg.max_new_tokens, opt,
+                                  device=device)
+        step = make_decode_fn(cfg, opt)
+        gen = torch.Generator(device=device).manual_seed(scfg.seed)
 
-    kv = init_kv_store_batch(store_cfg, b, link=link, device=device)
-    watch_health, reshard_advised = _health_watch(health_monitor, link)
-    remote_k, remote_v = _remote_pool(store_cfg, b * pcfg.pages_per_seq,
-                                      device)
-    seq_ids = torch.arange(b, dtype=torch.int32, device=device)
-    pol = residency.as_policy(store_cfg.policy, device=device)
+        kv = init_kv_store_batch(store_cfg, b, link=link, device=device)
+        watch_health, reshard_advised = _health_watch(health_monitor, link)
+        remote_k, remote_v = _remote_pool(store_cfg, b * pcfg.pages_per_seq,
+                                          device)
+        seq_ids = torch.arange(b, dtype=torch.int32, device=device)
+        pol = residency.as_policy(store_cfg.policy, device=device)
 
-    def kv_step(kv_state, pos: int):
-        need, offs, writes = paged_request_window(
-            torch.full((b,), pos, dtype=torch.int32, device=device),
-            seq_ids, store_cfg.page_tokens, pcfg.window_pages,
-            pcfg.pages_per_seq)
-        kv_state, _, _, _ = step_fetch_batch(kv_state, store_cfg, remote_k,
-                                             remote_v, need, offs, writes,
-                                             policy=pol)
-        return kv_state
+        def kv_step(kv_state, pos: int):
+            need, offs, writes = paged_request_window(
+                torch.full((b,), pos, dtype=torch.int32, device=device),
+                seq_ids, store_cfg.page_tokens, pcfg.window_pages,
+                pcfg.pages_per_seq)
+            kv_state, _, _, _ = step_fetch_batch(kv_state, store_cfg, remote_k,
+                                                 remote_v, need, offs, writes,
+                                                 policy=pol)
+            return kv_state
 
-    # zero-length prompts skip prefill and decode from a BOS-like token 0
-    nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
-    with _span(recorder, "prefill", tokens=p) as sp:
-        for i in range(p):
-            nxt, state = step(params, state, prompts[:, i:i + 1], i, gen,
-                              scfg.temperature)
-            kv = kv_step(kv, i)
-            watch_health(i + 1)
-        sp["sync"] = (nxt, kv.fab.page_busy)
-    tok = nxt
-    out = [prompts]
-    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
-        for i in range(scfg.max_new_tokens):
-            out.append(tok)
-            with _span(recorder, "decode_step", tid=1, step=i) as s2:
-                tok, state = step(params, state, tok, p + i, gen,
-                                  scfg.temperature)
-                kv = kv_step(kv, p + i)
-                s2["sync"] = (tok, kv.fab.page_busy)
-            watch_health(p + i + 1)
-        sp["sync"] = tok
-    led = store_ledger(kv)
-    if health_monitor is not None:
-        led["link_reshard_modules"] = sorted(reshard_advised)
-    return torch.cat(out, dim=1), _finish_ledger(led, kv, recorder)
+        # zero-length prompts skip prefill and decode from a BOS-like token 0
+        nxt = torch.zeros((b, 1), dtype=torch.int32, device=device)
+        with _span(recorder, "prefill", tokens=p) as sp:
+            for i in range(p):
+                with _step_span("prefill", i, b):
+                    nxt, state = step(params, state, prompts[:, i:i + 1], i,
+                                      gen, scfg.temperature)
+                    kv = kv_step(kv, i)
+                    watch_health(i + 1)
+            sp["sync"] = (nxt, kv.fab.page_busy)
+        tok = nxt
+        out = [prompts]
+        with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+            for i in range(scfg.max_new_tokens):
+                with _step_span("decode", i, b):
+                    out.append(tok)
+                    with _span(recorder, "decode_step", tid=1,
+                               step=i) as s2:
+                        tok, state = step(params, state, tok, p + i, gen,
+                                          scfg.temperature)
+                        kv = kv_step(kv, p + i)
+                        s2["sync"] = (tok, kv.fab.page_busy)
+                    watch_health(p + i + 1)
+            sp["sync"] = tok
+        led = store_ledger(kv)
+        if health_monitor is not None:
+            led["link_reshard_modules"] = sorted(reshard_advised)
+        return torch.cat(out, dim=1), _finish_ledger(led, kv, recorder)
 
 
 def _health_watch(health_monitor, link):
@@ -295,66 +317,70 @@ def serve_replicated(params, cfg: ArchConfig, prompts, scfg: ServeConfig,
     c = num_replicas
     prompts = torch.as_tensor(prompts, device=device).to(torch.int32)
     b, p = prompts.shape
-    kv = init_kv_store_replicated(store_cfg, c, b, link=link,
-                                  device=device)
-    c_local = c
-    if mesh is not None:
-        from repro_torch.runtime import mesh_plane
-        kv = mesh_plane.shard_replicated_state(kv, mesh)
-        c_local = kv.num_replicas
-    flat_prompts = prompts.repeat(c_local, 1)              # (C/W*B, P)
-    state = init_decode_state(cfg, c_local * b, p + scfg.max_new_tokens,
-                              opt, device=device)
-    step = make_decode_fn(cfg, opt)
-    gen = torch.Generator(device=device).manual_seed(scfg.seed)
+    with _call_span("serve_replicated", c * b, p, scfg):
+        kv = init_kv_store_replicated(store_cfg, c, b, link=link,
+                                      device=device)
+        c_local = c
+        if mesh is not None:
+            from repro_torch.runtime import mesh_plane
+            kv = mesh_plane.shard_replicated_state(kv, mesh)
+            c_local = kv.num_replicas
+        flat_prompts = prompts.repeat(c_local, 1)              # (C/W*B, P)
+        state = init_decode_state(cfg, c_local * b, p + scfg.max_new_tokens,
+                                  opt, device=device)
+        step = make_decode_fn(cfg, opt)
+        gen = torch.Generator(device=device).manual_seed(scfg.seed)
 
-    remote_k, remote_v = _remote_pool(
-        store_cfg, c * b * pcfg.pages_per_seq, device)
-    seq_ids = torch.arange(c * b, dtype=torch.int32, device=device)
-    pol = residency.as_policy(store_cfg.policy, device=device)
-    shape = (c, b, pcfg.window_pages)
+        remote_k, remote_v = _remote_pool(
+            store_cfg, c * b * pcfg.pages_per_seq, device)
+        seq_ids = torch.arange(c * b, dtype=torch.int32, device=device)
+        pol = residency.as_policy(store_cfg.policy, device=device)
+        shape = (c, b, pcfg.window_pages)
 
-    def kv_step(kv_state, pos: int):
-        need, offs, writes = paged_request_window(
-            torch.full((c * b,), pos, dtype=torch.int32, device=device),
-            seq_ids, store_cfg.page_tokens, pcfg.window_pages,
-            pcfg.pages_per_seq)
-        req = (need.reshape(shape), offs.reshape(shape),
-               writes.reshape(shape))
-        if mesh is None:
-            kv_state, _, _, _ = step_fetch_replicated(
-                kv_state, store_cfg, remote_k, remote_v, *req, policy=pol)
-        else:
-            kv_state, _, _, _ = mesh_plane.step_replicated_sharded(
-                kv_state, store_cfg, mesh, remote_k, remote_v, *req,
-                policy=pol)
-        return kv_state
+        def kv_step(kv_state, pos: int):
+            need, offs, writes = paged_request_window(
+                torch.full((c * b,), pos, dtype=torch.int32, device=device),
+                seq_ids, store_cfg.page_tokens, pcfg.window_pages,
+                pcfg.pages_per_seq)
+            req = (need.reshape(shape), offs.reshape(shape),
+                   writes.reshape(shape))
+            if mesh is None:
+                kv_state, _, _, _ = step_fetch_replicated(
+                    kv_state, store_cfg, remote_k, remote_v, *req, policy=pol)
+            else:
+                kv_state, _, _, _ = mesh_plane.step_replicated_sharded(
+                    kv_state, store_cfg, mesh, remote_k, remote_v, *req,
+                    policy=pol)
+            return kv_state
 
-    # zero-length prompts skip prefill and decode from a BOS-like token 0
-    nxt = torch.zeros((c_local * b, 1), dtype=torch.int32, device=device)
-    with _span(recorder, "prefill", tokens=p) as sp:
-        for i in range(p):
-            nxt, state = step(params, state, flat_prompts[:, i:i + 1], i,
-                              gen, scfg.temperature)
-            kv = kv_step(kv, i)
-        sp["sync"] = (nxt, kv.fab.page_busy)
-    tok = nxt
-    out = [flat_prompts]
-    with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
-        for i in range(scfg.max_new_tokens):
-            out.append(tok)
-            tok, state = step(params, state, tok, p + i, gen,
-                              scfg.temperature)
-            kv = kv_step(kv, p + i)
-        sp["sync"] = (tok, kv.fab.page_busy)
-    tokens = torch.cat(out, dim=1)
-    if mesh is not None:
-        tokens = mesh_plane.gather_rows(tokens, mesh)
-        # the ledger reads the counters, telemetry and banks, not the
-        # pools: gather the state with empty pools
-        seqs = kv.seqs._replace(kpool=kv.seqs.kpool[:, :0],
-                                vpool=kv.seqs.vpool[:, :0])
-        kv = mesh_plane.gather_replicated_state(kv._replace(seqs=seqs),
-                                                mesh)
-    return (tokens.reshape((c, b, -1)),
-            _finish_ledger(store_ledger(kv), kv, recorder))
+        # zero-length prompts skip prefill and decode from a BOS-like token 0
+        nxt = torch.zeros((c_local * b, 1), dtype=torch.int32, device=device)
+        with _span(recorder, "prefill", tokens=p) as sp:
+            for i in range(p):
+                with _step_span("prefill", i, c_local * b):
+                    nxt, state = step(params, state,
+                                      flat_prompts[:, i:i + 1], i, gen,
+                                      scfg.temperature)
+                    kv = kv_step(kv, i)
+            sp["sync"] = (nxt, kv.fab.page_busy)
+        tok = nxt
+        out = [flat_prompts]
+        with _span(recorder, "decode", tokens=scfg.max_new_tokens) as sp:
+            for i in range(scfg.max_new_tokens):
+                with _step_span("decode", i, c_local * b):
+                    out.append(tok)
+                    tok, state = step(params, state, tok, p + i, gen,
+                                      scfg.temperature)
+                    kv = kv_step(kv, p + i)
+            sp["sync"] = (tok, kv.fab.page_busy)
+        tokens = torch.cat(out, dim=1)
+        if mesh is not None:
+            tokens = mesh_plane.gather_rows(tokens, mesh)
+            # the ledger reads the counters, telemetry and banks, not the
+            # pools: gather the state with empty pools
+            seqs = kv.seqs._replace(kpool=kv.seqs.kpool[:, :0],
+                                    vpool=kv.seqs.vpool[:, :0])
+            kv = mesh_plane.gather_replicated_state(kv._replace(seqs=seqs),
+                                                    mesh)
+        return (tokens.reshape((c, b, -1)),
+                _finish_ledger(store_ledger(kv), kv, recorder))

@@ -222,7 +222,6 @@ def test_counter_events_and_trace_export_match_reference(tmp_path):
             sp["sync"] = sync
         with rec.span("decode_step", tid=1, step=np.int64(3)):
             pass
-        rec.instant("mark", x=1)
         path = tmp_path / f"{obs.__name__}.json"
         cnt = j_cnt if obs is JO else t_cnt
         doc = obs.trace_export(str(path), spans=rec.events, counters=cnt,

@@ -79,7 +79,10 @@ The store's kernels are also timed at the store benchmark's shapes (the
 paged gather at L = 256 rows, with L2 warm and cold; the residency
 transaction at B = 64, 256 x 16 slots, 16 in-flight lanes) and the
 residency transaction at the replicated serve's last step (16
-sequences).
+sequences); the store's request fold, held bit for bit to its plain
+version with its inputs untouched, at the paged benchmark cell's shape
+(B = 16, R = 4, one module) and at the replicated serve's (C = 2 x
+B = 8, the NIC leg active) (`[schedule_fold_*]`).
 
 Output: one line per phase; then the card's name and power limit as
 nvidia-smi prints them; then one JSON line with each kernel's launches
@@ -146,6 +149,7 @@ from repro_torch.kernels import paged_gather as PG  # noqa: E402
 from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
 from repro_torch.kernels import residency_fused as RF  # noqa: E402
+from repro_torch.kernels import schedule_fold as SF  # noqa: E402
 from repro_torch.device import fake_mode  # noqa: E402
 from repro_torch.launch import op_analysis as OA  # noqa: E402
 from repro_torch.launch import specs as SPECS  # noqa: E402
@@ -263,7 +267,7 @@ def device_phase():
     return name, smi
 
 
-KERNELS = (PG.KERNEL, RF.KERNEL) + QD.KERNELS + BDI.KERNELS
+KERNELS = (PG.KERNEL, RF.KERNEL, SF.KERNEL) + QD.KERNELS + BDI.KERNELS
 
 
 def build_phase():
@@ -604,18 +608,23 @@ def serve_phase():
     torch.cuda.reset_peak_memory_stats()
     PG.KERNEL.launches = 0
     RF.KERNEL.launches = 0
+    SF.KERNEL.launches = 0
     t0 = time.perf_counter()
     tokens, led = serve_batch_paged(params, cfg, prompts, scfg, store,
                                     SERVE_PAGED)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {"paged_gather": PG.KERNEL.launches,
-              "fused_residency_step": RF.KERNEL.launches}
+              "fused_residency_step": RF.KERNEL.launches,
+              "schedule_fold": SF.KERNEL.launches}
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_PROMPT + SERVE_NEW
     r = SERVE_PAGED.window_pages
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
+    if counts["schedule_fold"] != steps:
+        raise AssertionError(f"{counts['schedule_fold']} folds for {steps} "
+                             "store steps")
     if led["requests"] != SERVE_B * r * steps:
         raise AssertionError(f"requests {led['requests']} != B*R*steps")
     if abs(sum(led["module_bytes"]) - led["wire_bytes"]) > \
@@ -856,8 +865,10 @@ def drive_replicated_phase():
                 wr.to(DEV))
             st_c, *out_c = DS.step_fetch_replicated(
                 st_c, cfg, remote_c, remote_c, need, offs, wr)
-            i1, w1 = compare_states(st_g, st_c, f"C={c} step {step}")
-            i2, w2 = compare_states(out_g, out_c, f"C={c} step {step} out")
+            i1, w1 = compare_states(st_g, st_c, f"C={c} step {step}",
+                                    exact=True)
+            i2, w2 = compare_states(out_g, out_c, f"C={c} step {step} out",
+                                    exact=True)
             same, worst = same and i1 and i2, max(worst, w1, w2)
         led = DS.ledger(st_g)
         units, mods = sum(led["unit_bytes"]), sum(led["module_bytes"])
@@ -915,7 +926,8 @@ def drive_mesh_phase():
     reqs = [tuple(torch.from_numpy(x).to(DEV) for x in
                   drive_requests(rng, (c, b, DRIVE_R)))
             for _ in range(DRIVE_STEPS)]
-    counts = {"paged_gather": 0, "fused_residency_step": 0}
+    counts = {"paged_gather": 0, "fused_residency_step": 0,
+              "schedule_fold": 0}
     with nccl_world():
         mesh = make_data_mesh()
         st = MP.shard_replicated_state(
@@ -926,10 +938,12 @@ def drive_mesh_phase():
                                                    need, offs, wr)
             PG.KERNEL.launches = 0
             RF.KERNEL.launches = 0
+            SF.KERNEL.launches = 0
             st, *out_s = MP.step_replicated_sharded(st, cfg, mesh, remote,
                                                     remote, need, offs, wr)
             counts["paged_gather"] += PG.KERNEL.launches
             counts["fused_residency_step"] += RF.KERNEL.launches
+            counts["schedule_fold"] += SF.KERNEL.launches
             compare_states(st, ref, f"mesh step {step}", exact=True)
             compare_states(out_s, out_r, f"mesh step {step} out",
                            exact=True)
@@ -961,8 +975,10 @@ def drive_single_phase():
                                      need.to(DEV), offs.to(DEV), wr.to(DEV))
         st_c, *out_c = DS.step_fetch(st_c, cfg, remote_c, remote_c, need,
                                      offs, wr)
-        i1, w1 = compare_states(st_g, st_c, f"single step {step}")
-        i2, w2 = compare_states(out_g, out_c, f"single step {step} out")
+        i1, w1 = compare_states(st_g, st_c, f"single step {step}",
+                                exact=True)
+        i2, w2 = compare_states(out_g, out_c, f"single step {step} out",
+                                exact=True)
         same, worst = same and i1 and i2, max(worst, w1, w2)
     led = DS.ledger(st_g)
     phase("store_drive_single", steps=DRIVE_STEPS, card_equals_cpu=True,
@@ -1009,6 +1025,147 @@ def chain_phase():
           k2_launches=chain_k2, k1_launches=chain_k1,
           evictions=led["evictions"], dirty_evicts=led["dirty_evicts"])
     return chain_k2
+
+
+# ------------------------------------------- the store's request fold
+FOLD_STORE = dict(num_local_pages=4, pool_ways=2, page_tokens=16,
+                  kv_heads=8, head_dim=128)   # the paged benchmark cell's
+FOLD_STEPS = 40
+
+
+class CaptureFold:
+    """Wraps DS._schedule while active: the inputs of its latest call
+    are cloned before the call (with the call's static choices), for
+    holding the fold's kernel to its plain version and timing both."""
+
+    def __enter__(self):
+        self._orig = DS._schedule
+        self.inputs = None
+
+        def wrapped(eng, fab, cfg, need, offs, hit, clock, nic=None,
+                    cus=None, active=None):
+            self.inputs = CP.tree_map(lambda t: t.clone(), (
+                eng, fab, need, offs, hit, clock)) + (
+                DS._fold_statics(cfg),) + CP.tree_map(
+                lambda t: t.clone(), (nic, cus, active))
+            return self._orig(eng, fab, cfg, need, offs, hit, clock, nic=nic,
+                              cus=cus, active=active)
+        DS._schedule = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        DS._schedule = self._orig
+
+
+def fold_inputs(replicas, batch):
+    """The fold's inputs at the last of FOLD_STEPS steps of the serve
+    loops' request window (every sequence at one position, from 40 on)
+    on a store of the paged cell's geometry: `batch` sequences, or
+    `replicas` x `batch` with the NIC bank."""
+    store = DS.KVStoreConfig(**FOLD_STORE)
+    n = batch * (replicas or 1)
+    pages = SERVE_PAGED.pages_per_seq
+    remote = torch.zeros((n * pages, 16, 8, 128), dtype=torch.bfloat16,
+                         device=DEV)
+    seq_ids = torch.arange(n, dtype=torch.int32, device=DEV)
+    if replicas is None:
+        st = DS.init_kv_store_batch(store, batch, device=DEV)
+    else:
+        st = DS.init_kv_store_replicated(store, replicas, batch, device=DEV)
+    with CaptureFold() as cap:
+        for i in range(FOLD_STEPS):
+            need, offs, wr = paged_request_window(
+                torch.full((n,), 40 + i, dtype=torch.int32, device=DEV),
+                seq_ids, store.page_tokens, SERVE_PAGED.window_pages, pages)
+            if replicas is None:
+                st, *_ = DS.step_fetch_batch(st, store, remote, remote, need,
+                                             offs, wr)
+            else:
+                shape = (replicas, batch, -1)
+                st, *_ = DS.step_fetch_replicated(
+                    st, store, remote, remote, need.reshape(shape),
+                    offs.reshape(shape), wr.reshape(shape))
+    return cap.inputs
+
+
+def fold_bound_bytes(inputs):
+    """Bytes the fold must move: the engine rows, both banks, the
+    requests and the outputs, each read once and written once."""
+    eng, fab, need, _, _, _, _, nic, _, _ = inputs
+    b, r = need.shape
+    row = sum(t[0].numel() * t.element_size() for t in eng)
+    banks = sum(9 * bank.line_busy.numel() * 4 for bank in (fab, nic)
+                if bank is not None)
+    m = fab.line_busy.numel()
+    return 2 * (b * row + banks) + b * r * (4 + 4 + 1) + b * r * 6 \
+        + 2 * b * m * 4
+
+
+def fold_check(inputs, what):
+    """The kernel against the plain fold on the card, on clones of
+    `inputs`: every output bit-equal and the inputs untouched."""
+    eng, fab, need, offs, hit, clock, st, nic, cus, active = inputs
+    args = (eng, fab, need, offs, hit, clock, st)
+    tensors = tree_leaves(inputs[:6] + inputs[7:])
+    before = [t.clone() for t in tensors]
+    got = SF.schedule_fold(*args, nic=nic, cus=cus, active=active)
+    want = REF.schedule_fold(*args, nic=nic, cus=cus, active=active)
+    for i, (a, c) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a = a.view(torch.int32) if a.dtype == torch.float32 else a
+        c = c.view(torch.int32) if c.dtype == torch.float32 else c
+        if not torch.equal(a, c):
+            raise AssertionError(f"{what}: fold output leaf {i} differs")
+    for i, (a, c) in enumerate(zip(tensors, before)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{what}: fold wrote input leaf {i}")
+
+
+def fold_timing(inputs, title):
+    """The fold's kernel checked and timed on `inputs` against its plain
+    version; prints one phase line and returns its numbers."""
+    fold_check(inputs, title)
+    eng, fab, need, offs, hit, clock, st, nic, cus, active = inputs
+    args = (eng, fab, need, offs, hit, clock, st)
+
+    def kernel():
+        return SF.schedule_fold(*args, nic=nic, cus=cus, active=active)
+
+    def plain():
+        return REF.schedule_fold(*args, nic=nic, cus=cus, active=active)
+
+    nbytes = fold_bound_bytes(inputs)
+    t = {
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(plain, iters=2, replays=2),
+        "bytes_bound_ms": nbytes / HBM_BYTES_PER_MS,
+        "call_ms": call_ms(kernel),
+        "plain_call_ms": call_ms(plain, iters=3, warmup=1),
+    }
+    phase(title, sequences=need.shape[0], requests=need.numel(),
+          modules=fab.line_busy.numel(),
+          nic_units=0 if nic is None else nic.line_busy.numel(),
+          exact=True, state_bytes=nbytes, **t)
+    return t
+
+
+def schedule_fold_phase():
+    """The fold's kernel bit for bit against its plain version and timed
+    at the paged cell's shape (B = 16, R = 4, one module) and at the
+    replicated serve's (C = 2 x B = 8, the NIC leg active). Returns its
+    record for the kernel line."""
+    t = fold_timing(fold_inputs(None, 16), "schedule_fold_paged_shape")
+    rep = fold_timing(fold_inputs(REP_C, SERVE_B),
+                      "schedule_fold_replicated_shape")
+    return {
+        "name": "schedule_fold", "route": "cuda",
+        "source": "src/repro_torch/csrc/schedule_fold.cu",
+        "replaces": "src/repro/core/daemon_store.py:678 (lax.scan)",
+        "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "library_ms": None, "bound_ms": t["bytes_bound_ms"],
+        "bound_by": "the chain of dependent requests (bytes shown)",
+        "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
+        "replicated_shape": rep,
+    }
 
 
 # ------------------------------- serving surface: replicas, telemetry
@@ -1214,17 +1371,18 @@ def serve_replicated_phase(cfg, params, prompts):
     with CaptureK1(at=steps) as cap:
         PG.KERNEL.launches = 0
         RF.KERNEL.launches = 0
+        SF.KERNEL.launches = 0
         t0 = time.perf_counter()
         tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
                                        REP_C, SERVE_PAGED)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {"paged_gather": PG.KERNEL.launches,
-                  "fused_residency_step": RF.KERNEL.launches}
+                  "fused_residency_step": RF.KERNEL.launches,
+                  "schedule_fold": SF.KERNEL.launches}
     peak = torch.cuda.max_memory_allocated()
     r = SERVE_PAGED.window_pages
-    if counts["fused_residency_step"] != steps or \
-            counts["paged_gather"] != steps:
+    if set(counts.values()) != {steps}:
         raise AssertionError(f"launches {counts}, expected {steps} each")
     if led["requests"] != seqs * r * steps:
         raise AssertionError(f"requests {led['requests']} != C*B*R*steps")
@@ -1295,19 +1453,20 @@ def serve_replicated_mesh_phase(cfg, params, prompts, rep_result):
         torch.cuda.synchronize()
         PG.KERNEL.launches = 0
         RF.KERNEL.launches = 0
+        SF.KERNEL.launches = 0
         t0 = time.perf_counter()
         tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
                                        REP_C, SERVE_PAGED, mesh=mesh)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {"paged_gather": PG.KERNEL.launches,
-                  "fused_residency_step": RF.KERNEL.launches}
+                  "fused_residency_step": RF.KERNEL.launches,
+                  "schedule_fold": SF.KERNEL.launches}
     if not torch.equal(tokens, want_tokens):
         raise AssertionError("mesh tokens differ from [serve_replicated]'s")
     if led != want_led:
         raise AssertionError("mesh ledger differs from [serve_replicated]'s")
-    if counts["fused_residency_step"] != steps or \
-            counts["paged_gather"] != steps:
+    if set(counts.values()) != {steps}:
         raise AssertionError(f"launches {counts}, expected {steps} each")
     if len(merge.secs) != steps:
         raise AssertionError(f"{len(merge.secs)} merges for {steps} steps")
@@ -2681,13 +2840,15 @@ def serve_family_phase(arch):
     torch.cuda.reset_peak_memory_stats()
     PG.KERNEL.launches = 0
     RF.KERNEL.launches = 0
+    SF.KERNEL.launches = 0
     t0 = time.perf_counter()
     tokens, led = serve_batch_paged(params, cfg, prompts, scfg, store,
                                     SERVE_PAGED)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {"paged_gather": PG.KERNEL.launches,
-              "fused_residency_step": RF.KERNEL.launches}
+              "fused_residency_step": RF.KERNEL.launches,
+              "schedule_fold": SF.KERNEL.launches}
     peak = torch.cuda.max_memory_allocated()
     steps = prompt_len + new
     r = SERVE_PAGED.window_pages
@@ -3124,6 +3285,7 @@ def run(name, smi):
     mesh_counts = drive_mesh_phase()
     drive_single_phase()
     chain_k2 = chain_phase()
+    sf = schedule_fold_phase()
     reference_phase()
     replicated_reference_phase()
     telemetry_phase()
@@ -3157,6 +3319,12 @@ def run(name, smi):
         "serve_replicated_mesh": rep_mesh_counts["paged_gather"],
         "store_drive_mesh": mesh_counts["paged_gather"],
         "store_chain": chain_k2}
+    sf["launches"] = counts["schedule_fold"]
+    sf["launches_by_path"] = {
+        "serve_batch_paged": counts["schedule_fold"],
+        "serve_replicated": rep_counts["schedule_fold"],
+        "serve_replicated_mesh": rep_mesh_counts["schedule_fold"],
+        "store_drive_mesh": mesh_counts["schedule_fold"]}
     del params                       # free the serve phases before training
     gc.collect()
     torch.cuda.empty_cache()
@@ -3167,6 +3335,8 @@ def run(name, smi):
         k1["launches_by_path"][f"serve_{short}"] = \
             fam_counts["fused_residency_step"]
         k2["launches_by_path"][f"serve_{short}"] = fam_counts["paged_gather"]
+        sf["launches_by_path"][f"serve_{short}"] = \
+            fam_counts["schedule_fold"]
         k1["max_abs_err"] = max(k1["max_abs_err"], t1.pop("max_abs_err"))
         k2["max_abs_err"] = max(k2["max_abs_err"], t2.pop("max_abs_err"))
         k1[f"{short}_shape"] = t1
@@ -3210,7 +3380,7 @@ def run(name, smi):
     mesh_lattice_phase(sim_axes_phase())
     sim_fig8_phase()
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, k3q, k3d, k4c, k4d]}))
+    print(json.dumps({"kernels": [k1, k2, sf, k3q, k3d, k4c, k4d]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

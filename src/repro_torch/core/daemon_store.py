@@ -13,8 +13,9 @@ fabric (``fabric``). Per decode step the steppers:
      whose gathers are the paged-gather kernel on the card);
   2. serve misses through the sub-block plane from the remote tier
      (`_remote_fetch` -> ``ops.paged_gather_pair``, hit rows masked off);
-  3. schedule the misses' transfers on the shared fabric (`_schedule`):
-     §4.2 granularity selection, §4.1 partitioned channels, and the §4.3
+  3. schedule the misses' transfers on the shared fabric (`_schedule`
+     -> ``ops.schedule_fold``, one kernel launch on the card): §4.2
+     granularity selection, §4.1 partitioned channels; and the §4.3
      writeback path for dirty evictions (`_writebacks`).
 
 Three steppers share that step: `step_fetch` (one sequence, the batched
@@ -29,7 +30,8 @@ bit for bit.
 State is NamedTuples of tensors with a leading sequence axis; the fabric
 is shared. The pools are updated in place by the transaction. No step
 reads a value back to the host: the reference's `lax.cond`s, which only
-skip work, become masks, and the scheduling loop is tensor ops.
+skip work, become masks, and the reference's scheduling scan is one
+kernel launch on the card (`ops.schedule_fold`).
 
 `_schedule` keeps the reference's order. The writeback half touches
 only the engines' dirty counters and the writeback channels of the
@@ -57,11 +59,8 @@ import torch
 from repro_torch.core import compute_plane, fabric, residency, telemetry
 from repro_torch.core.compute_plane import mean_last
 from repro_torch.core.engine import (EngineState, THROTTLED,
-                                     _at, find, gate_tree,
                                      init_engine_state, poll_arrivals,
-                                     retire_arrivals, schedule_line,
-                                     schedule_page, select_granularity,
-                                     utilization)
+                                     retire_arrivals)
 from repro_torch.core.fabric import FabricConfig, FabricState, LinkModel
 from repro_torch.core.params import DaemonParams
 from repro_torch.device import resolve_device
@@ -69,7 +68,6 @@ from repro_torch.kernels import ops
 
 F32 = torch.float32
 I32 = torch.int32
-BIG = 3.0e38
 
 # hot-path implementations: "auto" = the CUDA kernels on CUDA tensors,
 # their plain versions on CPU tensors; "cuda"/"ref" force one side;
@@ -518,6 +516,17 @@ def _nic_writebacks(nic: FabricState, n_wb, cus, active, clock,
                            page_wire)
 
 
+def _fold_statics(cfg: KVStoreConfig) -> ops.FoldStatics:
+    """The request fold's static choices for `cfg`."""
+    return ops.FoldStatics(
+        fabric=cfg.fabric, selection=cfg.selection,
+        adaptive_ratio=cfg.adaptive_ratio,
+        lines_per_page=cfg.daemon.lines_per_page,
+        r_idle=cfg.daemon.bw_ratio, nominal=float(page_cost_steps(cfg)),
+        line_wire=_wire_bytes(cfg, 1, False),        # critical token, raw
+        page_wire=_wire_bytes(cfg, cfg.page_tokens, cfg.compress_pages))
+
+
 def _schedule(eng: EngineState, fab: FabricState, cfg: KVStoreConfig,
               needed_pages, needed_offsets, local_hit, clock, nic=None,
               cus=None, active=None):
@@ -532,78 +541,17 @@ def _schedule(eng: EngineState, fab: FabricState, cfg: KVStoreConfig,
     the NIC gate, every transfer is priced on both legs
     (`compute_plane.serve_dual_two_leg`).
 
+    One `ops.schedule_fold` call: one kernel launch on the card
+    (``csrc/schedule_fold.cu``), the plain fold (`ref.schedule_fold`) on
+    CPU tensors or under `kernel_impl="ref"`.
+
     Returns (eng', fab', nic', line_sent, page_sent, stall, seen): the
     middle three (B, R), `stall` each request's movement-plane delay in
     steps (0 for hits); `seen` lists each sequence's (page_busy, ratio)
     of the fabric after its requests, for the telemetry series."""
-    b, r = needed_pages.shape
-    dp = cfg.daemon
-    nominal = float(page_cost_steps(cfg))
-    line_wire = _wire_bytes(cfg, 1, False)            # critical token, raw
-    page_wire = _wire_bytes(cfg, cfg.page_tokens, cfg.compress_pages)
-    lines, pages, stalls, engs, seen = [], [], [], [], []
-    for bi in range(b):
-        e = EngineState(*(t[bi] for t in eng))
-        for i in range(r):
-            pid = needed_pages[bi, i]
-            off = needed_offsets[bi, i] % dp.lines_per_page
-            mc = fabric.place(cfg.fabric, pid)
-            bw = fabric.link_bw_at(fab.link, mc, clock)
-            _, page_backlog = fabric.backlog(fab, mc, clock)
-            pressure = page_backlog / (page_backlog + nominal)
-            send_line, send_page = select_granularity(
-                e, pid, clock, selection_enabled=cfg.selection,
-                always_both=not cfg.selection, module_pressure=pressure)
-            fab = fabric.adapt_ratio_at(
-                fab, mc, clock, adaptive=cfg.adaptive_ratio,
-                r_idle=dp.bw_ratio, page_unit=page_wire,
-                line_occ=utilization(e.sb_key),
-                page_occ=utilization(e.page_key))
-            page_share = 1.0 - _at(fab.ratio, mc)
-            miss = ~local_hit[bi, i]
-            do_page = miss & send_page
-            do_line = miss & send_line
-            # inflight page the request can ride (lookup BEFORE scheduling)
-            inflight, pidx = find(e.page_key, pid)
-            pending = torch.where(inflight, _at(e.page_arrival, pidx), BIG)
-            serve = dict(partition=True, now=clock,
-                         line_ready=clock, line_bytes=line_wire,
-                         line_gate=do_line, page_ready=clock,
-                         page_bytes=page_wire, page_gate=do_page)
-            if nic is None:
-                fab, line_done, page_done = fabric.serve_dual_at(
-                    fab, mc, **serve)
-                page_done_mod = page_done
-            else:
-                fab, nic, line_done, page_done, _, page_done_mod = \
-                    compute_plane.serve_dual_two_leg(
-                        fab, nic, mc, cus[bi], active=active, **serve)
-            # issue = transmission start on the module channel (§4.2)
-            page_start = page_done_mod - page_wire / torch.clamp(
-                bw * page_share, min=1e-6)
-            e = gate_tree(do_page, e,
-                          schedule_page(e, pid, page_start, page_done))
-            e = gate_tree(do_line, e,
-                          schedule_line(e, pid, off, line_done,
-                                        dp.lines_per_page))
-            served_at = torch.minimum(
-                torch.where(do_line, line_done, BIG),
-                torch.minimum(torch.where(do_page, page_done, BIG),
-                              pending))
-            served_at = torch.where(served_at >= BIG / 2, clock + nominal,
-                                    served_at)
-            stall = torch.where(miss, torch.clamp(served_at - clock,
-                                                  min=0.0), 0.0)
-            lines.append(do_line)
-            pages.append(do_page)
-            stalls.append(stall)
-        engs.append(e)
-        seen.append((fab.page_busy, fab.ratio))
-    eng = EngineState(*(torch.stack(leaves) for leaves in zip(*engs)))
-    shape = (b, r)
-    return (eng, fab, nic, torch.stack(lines).reshape(shape),
-            torch.stack(pages).reshape(shape),
-            torch.stack(stalls).reshape(shape), seen)
+    return ops.schedule_fold(eng, fab, needed_pages, needed_offsets,
+                             local_hit, clock, _fold_statics(cfg), nic=nic,
+                             cus=cus, active=active, impl=_ops_impl(cfg))
 
 
 def _stats_fold(stats: dict, cfg: KVStoreConfig, line_sent, page_sent,

@@ -20,7 +20,9 @@ from repro_torch.kernels import paged_gather as _pg
 from repro_torch.kernels import qdq_int8 as _qdq
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import residency_fused as _rf
+from repro_torch.kernels import schedule_fold as _sf
 from repro_torch.kernels._build import check_cuda
+from repro_torch.kernels.ref import FoldStatics
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -101,3 +103,14 @@ def residency_fused(res, kpool, vpool, remote_k, remote_v, landed,
           else _ref.fused_residency_step)
     return fn(res, kpool, vpool, remote_k, remote_v, landed, landed_pages,
               needed_pages, needed_writes, clock, pol)
+
+
+def schedule_fold(eng, fab, needed_pages, needed_offsets, local_hit, clock,
+                  statics: FoldStatics, nic=None, cus=None, active=None,
+                  impl: str = "auto"):
+    """The store's request fold over a step's (B, R) requests; see
+    ref.schedule_fold for the contract (nothing updated in place)."""
+    fn = (_sf.schedule_fold if _use_kernel(needed_pages, impl)
+          else _ref.schedule_fold)
+    return fn(eng, fab, needed_pages, needed_offsets, local_hit, clock,
+              statics, nic=nic, cus=cus, active=active)

@@ -15,17 +15,27 @@ the card) and what the wrappers in `ops` run on CPU tensors. They follow
   cast yields int32 and ``x - base`` wraps; here the difference is taken
   in int64 and wrapped explicitly (`wrap_i32`).
 
+`schedule_fold` is the store's request fold: the plain version of the
+kernel ``csrc/schedule_fold.cu``, and what ``daemon_store._schedule``
+runs on CPU tensors.
+
 `decode_attention_paged` is the reference's paged-decode oracle. It has
 no kernel, and no serve path calls it.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.core import residency
+from repro_torch.core import compute_plane, fabric, residency
+from repro_torch.core.engine import (EngineState, _at, find, gate_tree,
+                                     schedule_line, schedule_page,
+                                     select_granularity, utilization)
 
 F32 = torch.float32
 I32 = torch.int32
+BIG = 3.0e38
 
 
 def quantize_block_int8(x2d):
@@ -195,6 +205,102 @@ def fused_residency_step(res, kpool, vpool, remote_k, remote_v, landed,
         torch.bool), gate=local_hit)
     return (res, kpool, vpool, evicted.to(I32), n_ev, k_local, v_local,
             local_hit)
+
+
+class FoldStatics(NamedTuple):
+    """The request fold's static choices (the kernel's launch arguments):
+    the fabric's modules and placement, the store's §4.2 and §4.1
+    switches, the sub-block key stride, the seed line share `r_idle`,
+    the nominal page service time in steps, and the wire bytes of one
+    critical line and of one page."""
+    fabric: fabric.FabricConfig
+    selection: bool
+    adaptive_ratio: bool
+    lines_per_page: int
+    r_idle: float
+    nominal: float
+    line_wire: float
+    page_wire: float
+
+
+def schedule_fold(eng: EngineState, fab: fabric.FabricState, needed_pages,
+                  needed_offsets, local_hit, clock, st: FoldStatics,
+                  nic=None, cus=None, active=None):
+    """Route every miss of a step through the §4.2 selection unit and
+    serve its transfers on the shared fabric: sequence order, then
+    request order, the fabric (and the NIC bank `nic`) as carry.
+
+    `eng` leaves (B, P) / (B, S); `needed_pages`, `needed_offsets` and
+    `local_hit` (B, R); `clock` 0-d f32; with a NIC bank, `cus` (B,) the
+    sequences' units and `active` the NIC gate. Nothing is updated in
+    place. Returns (eng', fab', nic', line_sent, page_sent, stall, seen):
+    the middle three (B, R), `stall` each request's movement-plane delay
+    in steps (0 for hits); `seen` lists each sequence's (page_busy,
+    ratio) of the fabric after its requests."""
+    b, r = needed_pages.shape
+    lines, pages, stalls, engs, seen = [], [], [], [], []
+    for bi in range(b):
+        e = EngineState(*(t[bi] for t in eng))
+        for i in range(r):
+            pid = needed_pages[bi, i]
+            off = needed_offsets[bi, i] % st.lines_per_page
+            mc = fabric.place(st.fabric, pid)
+            bw = fabric.link_bw_at(fab.link, mc, clock)
+            _, page_backlog = fabric.backlog(fab, mc, clock)
+            pressure = page_backlog / (page_backlog + st.nominal)
+            send_line, send_page = select_granularity(
+                e, pid, clock, selection_enabled=st.selection,
+                always_both=not st.selection, module_pressure=pressure)
+            fab = fabric.adapt_ratio_at(
+                fab, mc, clock, adaptive=st.adaptive_ratio,
+                r_idle=st.r_idle, page_unit=st.page_wire,
+                line_occ=utilization(e.sb_key),
+                page_occ=utilization(e.page_key))
+            page_share = 1.0 - _at(fab.ratio, mc)
+            miss = ~local_hit[bi, i]
+            do_page = miss & send_page
+            do_line = miss & send_line
+            # inflight page the request can ride (lookup BEFORE scheduling)
+            inflight, pidx = find(e.page_key, pid)
+            pending = torch.where(inflight, _at(e.page_arrival, pidx), BIG)
+            serve = dict(partition=True, now=clock,
+                         line_ready=clock, line_bytes=st.line_wire,
+                         line_gate=do_line, page_ready=clock,
+                         page_bytes=st.page_wire, page_gate=do_page)
+            if nic is None:
+                fab, line_done, page_done = fabric.serve_dual_at(
+                    fab, mc, **serve)
+                page_done_mod = page_done
+            else:
+                fab, nic, line_done, page_done, _, page_done_mod = \
+                    compute_plane.serve_dual_two_leg(
+                        fab, nic, mc, cus[bi], active=active, **serve)
+            # issue = transmission start on the module channel (§4.2)
+            page_start = page_done_mod - st.page_wire / torch.clamp(
+                bw * page_share, min=1e-6)
+            e = gate_tree(do_page, e,
+                          schedule_page(e, pid, page_start, page_done))
+            e = gate_tree(do_line, e,
+                          schedule_line(e, pid, off, line_done,
+                                        st.lines_per_page))
+            served_at = torch.minimum(
+                torch.where(do_line, line_done, BIG),
+                torch.minimum(torch.where(do_page, page_done, BIG),
+                              pending))
+            served_at = torch.where(served_at >= BIG / 2,
+                                    clock + st.nominal, served_at)
+            stall = torch.where(miss, torch.clamp(served_at - clock,
+                                                  min=0.0), 0.0)
+            lines.append(do_line)
+            pages.append(do_page)
+            stalls.append(stall)
+        engs.append(e)
+        seen.append((fab.page_busy, fab.ratio))
+    eng = EngineState(*(torch.stack(leaves) for leaves in zip(*engs)))
+    shape = (b, r)
+    return (eng, fab, nic, torch.stack(lines).reshape(shape),
+            torch.stack(pages).reshape(shape),
+            torch.stack(stalls).reshape(shape), seen)
 
 
 def decode_attention_paged(q, kpages, vpages, page_table, lengths):

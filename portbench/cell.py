@@ -2,8 +2,13 @@
 its configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`) and the limits of its comparison
 (`limits/<cell>.json`); the port's architecture it runs, checked against
-the configuration's published sizes; and the inputs made from the seed:
-the weights, on the device in a few large draws, and the prompts.
+the configuration's published sizes; the configuration's plain
+reference (`reference/<reference>.py`, by default its `family`), which
+lists the weights to draw and maps them onto the port's parameter
+tree; and the inputs made from the seed: the weights, on the device in
+a few large draws, and the prompts. A configuration is thus its file,
+its reference module, a traffic mix and a limits file per cell: new
+files, with no edit of this module or of the harness.
 
 A traffic mix lists its calls' lengths (`calls`: [prompt tokens, new
 tokens] per call, in the order they run, every seed the same); the
@@ -12,6 +17,7 @@ window cycles through them, and each call's B prompts share its lengths.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 from pathlib import Path
 
@@ -83,62 +89,40 @@ def padded_vocab(vocab: int) -> int:
     return -(-vocab // 512) * 512
 
 
+def reference(cfg: dict):
+    """The configuration's plain reference, `reference/<name>.py`: the
+    module its `reference` key names, by default its `family`. It gives
+    the leaves the seed draws, their place in the port's parameter tree
+    and the logits the comparison holds the program to."""
+    return importlib.import_module(
+        f"portbench.reference.{cfg.get('reference', cfg['family'])}")
+
+
 def make_weights(cfg: dict, seed: int, device) -> dict:
     """The model's weights from `seed`, drawn on `device` one stacked
-    leaf at a time: projections in the served type at 1/sqrt(fan-in),
-    the embedding at 1, the output head at 1/sqrt(d), and the RMSNorm
-    offsets (float32) at 0.1. With `tie_word_embeddings` one table at
-    1/sqrt(d) is both the embedding and the output head. A flat dict by
-    name."""
-    dtype = getattr(torch, cfg["torch_dtype"])
+    leaf at a time as the configuration's reference lists them (its
+    `leaves`: name, shape, scale, dtype). With `tie_word_embeddings`
+    one table, drawn as the output head is in the embedding's place, is
+    both the embedding and the output head. A flat dict by name."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    layers, d = cfg["num_hidden_layers"], cfg["hidden_size"]
-    nh, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd, f = cfg["head_dim"], cfg["intermediate_size"]
-    vp = padded_vocab(cfg["vocab_size"])
-
-    def draw(shape, scale, dt=dtype):
-        t = torch.randn(shape, generator=gen, device=device, dtype=dt)
-        return t.mul_(scale)
-
+    leaves = reference(cfg).leaves(cfg, padded_vocab(cfg["vocab_size"]))
     tied = cfg.get("tie_word_embeddings", False)
-    w = {"embed": draw((vp, d), d ** -0.5 if tied else 1.0),
-         "norm1": draw((layers, d), 0.1, torch.float32),
-         "wq": draw((layers, d, nh, hd), d ** -0.5),
-         "wk": draw((layers, d, nkv, hd), d ** -0.5),
-         "wv": draw((layers, d, nkv, hd), d ** -0.5),
-         "wo": draw((layers, nh, hd, d), (nh * hd) ** -0.5),
-         "q_norm": draw((layers, hd), 0.1, torch.float32),
-         "k_norm": draw((layers, hd), 0.1, torch.float32),
-         "norm2": draw((layers, d), 0.1, torch.float32)}
-    if cfg["family"] == "moe":
-        e = cfg["num_experts"]
-        w["router"] = draw((layers, d, e), d ** -0.5)
-        w["w_gate"] = draw((layers, e, d, f), d ** -0.5)
-        w["w_up"] = draw((layers, e, d, f), d ** -0.5)
-        w["w_down"] = draw((layers, e, f, d), f ** -0.5)
-    else:
-        w["w_gate"] = draw((layers, d, f), d ** -0.5)
-        w["w_up"] = draw((layers, d, f), d ** -0.5)
-        w["w_down"] = draw((layers, f, d), f ** -0.5)
-    w["final_norm"] = draw((d,), 0.1, torch.float32)
-    w["unembed"] = w["embed"] if tied else draw((vp, d), d ** -0.5)
+    if tied:
+        head = next(leaf for leaf in leaves if leaf[0] == "unembed")
+        leaves = [("embed", *head[1:]) if leaf[0] == "embed" else leaf
+                  for leaf in leaves if leaf[0] != "unembed"]
+    w = {name: torch.randn(shape, generator=gen, device=device,
+                           dtype=dtype).mul_(scale)
+         for name, shape, scale, dtype in leaves}
+    if tied:
+        w["unembed"] = w["embed"]
     return w
 
 
-def port_params(w: dict, family: str) -> dict:
-    """The same tensors in repro_torch's parameter tree (one stacked run
-    of attention blocks), without copies."""
-    ffn = ("router", "w_gate", "w_up", "w_down") if family == "moe" \
-        else ("w_gate", "w_up", "w_down")
-    run = {"norm1": {"scale": w["norm1"]},
-           "attn": {k: w[k] for k in ("wq", "wk", "wv", "wo", "q_norm",
-                                      "k_norm")},
-           "norm2": {"scale": w["norm2"]},
-           "ffn": {k: w[k] for k in ffn}}
-    return {"embed": {"table": w["embed"]}, "runs": (run,),
-            "final_norm": {"scale": w["final_norm"]},
-            "unembed": {"table": w["unembed"]}}
+def port_params(w: dict, cfg: dict) -> dict:
+    """The same tensors in repro_torch's parameter tree, without copies
+    (the configuration's reference's `port_params`)."""
+    return reference(cfg).port_params(w)
 
 
 WARM_CALL = 1 << 21      # the warm call's prompt stream, past every call's

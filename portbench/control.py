@@ -22,7 +22,6 @@ does not.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import sys
 import time
@@ -42,7 +41,7 @@ def readings(spec: dict, seed: int, device, seconds: float = 0.0) -> dict:
     b = tr["batch"]
     arch = cell.port_arch(cfg)
     weights = cell.make_weights(cfg, seed, device)
-    params = cell.port_params(weights, cfg["family"])
+    params = cell.port_params(weights, cfg)
     entry = harness.make_entry(spec, arch, params, device)
     calls, start = [], time.perf_counter()
     while not calls or time.perf_counter() - start < seconds:
@@ -54,7 +53,7 @@ def readings(spec: dict, seed: int, device, seconds: float = 0.0) -> dict:
         calls.append((tokens, led, p))
     sizes = [(t.shape[0], t.shape[1] - p) for t, _, p in calls]
     picks = cell.sample(seed, sizes, tr["sample_sequences"])
-    ref = importlib.import_module(f"portbench.reference.{cfg['family']}")
+    ref = cell.reference(cfg)
     prog, ctrl = [], []
     for c in sorted({c for c, _ in picks}):
         tokens, _, p = calls[c]

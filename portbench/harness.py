@@ -14,13 +14,17 @@ A traced run (`trace=True`) wraps, for the window only, `decode_step`
 and `step_fetch_batch` as `runtime.serve_loop` looks them up (each wrap
 synchronises the device before and after, so its span covers the work
 it queued), labels the store's parts for the device trace, keeps the
-serve loop's own `decode_step` spans, and records the device trace of
-the traffic's `trace_steps` (decode steps counted from the window's
-start).
+serve loop's own `decode_step` spans, records the device trace of the
+traffic's `trace_steps` (decode steps counted from the window's start),
+and makes one `SpanRecorder` of the port active over the window's
+calls: the metric readers get its layer spans (`span_events`) and the
+device launches and seconds that `spans.attribute` gives each span in
+the profiled steps (`span_devices`). An untraced run makes none of
+these.
 """
 from __future__ import annotations
 
-import importlib
+import contextlib
 import importlib.util
 import subprocess
 import time
@@ -28,7 +32,7 @@ import time
 import torch
 
 from portbench import cell as cellmod
-from portbench import counts, devtrace, judge
+from portbench import counts, devtrace, judge, spans
 from portbench.cell import HERE
 
 STORE_PARTS = ("_residency", "_remote_fetch", "_writebacks", "_schedule")
@@ -40,11 +44,14 @@ def _sync(device):
 
 
 class Tracer:
-    """The traced run's wraps; `install` patches the serve loop's and
-    the store's module globals, `restore` puts them back."""
+    """The traced run's wraps, its profiler and its recorder of the
+    port's layer spans (`recorder`); `install` patches the serve loop's
+    and the store's module globals, `restore` puts them back."""
 
     def __init__(self, device, trace_steps):
+        from repro_torch.runtime.obs import SpanRecorder
         self.device = device
+        self.recorder = SpanRecorder()
         self.first, self.last = trace_steps
         self.model_s, self.store_s = [], []
         self.steps = 0
@@ -124,6 +131,14 @@ class Tracer:
         for module, name, fn in reversed(self._saved):
             setattr(module, name, fn)
         self._saved.clear()
+
+    def span_devices(self):
+        """`spans.attribute` over the profiled window: per span name the
+        device launches and seconds; None without a profiled window."""
+        if self.window is None:
+            return None
+        names = {e["name"] for e in self.recorder.events}
+        return spans.attribute(*spans.profile_events(self.prof, names)[:3])
 
 
 def make_entry(spec: dict, arch, params, device):
@@ -211,7 +226,7 @@ def compare(spec: dict, weights: dict, calls: list, seed: int,
     values, failed = {}, 0
     sizes = [(t.shape[0], t.shape[1] - p) for t, _, p in calls]
     picks = cellmod.sample(seed, sizes, tr["sample_sequences"])
-    ref = importlib.import_module(f"portbench.reference.{cfg['family']}")
+    ref = cellmod.reference(cfg)
     device = weights["embed"].device
     gaps = []
     for c in sorted({c for c, _ in picks}):
@@ -265,7 +280,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     cuda = torch.device(device).type == "cuda"
     arch = cellmod.port_arch(cfg)
     weights = cellmod.make_weights(cfg, seed, device)
-    params = cellmod.port_params(weights, cfg["family"])
+    params = cellmod.port_params(weights, cfg)
     call = make_entry(spec, arch, params, device)
 
     def prompts(c, p):
@@ -293,8 +308,11 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
             c = len(calls)
             p, n = cellmod.call_lengths(tr, c)
             rec = SpanRecorder() if tracer and paged else None
+            layer_spans = tracer.recorder.active() if tracer \
+                else contextlib.nullcontext()
             began = time.perf_counter()
-            tokens, led = call(prompts(c, p), n, rec)
+            with layer_spans:
+                tokens, led = call(prompts(c, p), n, rec)
             _sync(device)
             end = time.perf_counter()
             calls.append((tokens, led, p))
@@ -361,7 +379,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
                "step_ms": (step_spans if paged
                            else [s * 1e3 for s in tracer.model_s]),
                "trace": summary, "trace_steps": tr["trace_steps"],
-               "store_per_step": per_step}
+               "store_per_step": per_step,
+               "span_events": tracer.recorder.events,
+               "span_devices": tracer.span_devices()}
         for m in spec["per_layer"]:
             value = load_metric(m["name"])(ctx)
             if value is not None:

@@ -10,11 +10,15 @@ embedding table itself where the configuration ties them). Each
 RMSNorm's weight is stored as an offset from 1. The whole sequence is
 computed at once, with no cache and no batching tricks.
 
-`logits(weights, cfg, tokens)` reads the benchmark's flat weight dict
-(`portbench.weights`) and the configuration file's published keys;
-`quant="fp8"` fake-quantises both operands of every weight product to
-float8 e4m3 (per row of the activations, per output column of the
-weights): the lower-precision control.
+The module also says what the benchmark draws from the seed for this
+block and where the port takes it: `leaves(cfg, vocab_rows)`, the flat
+weight dict's leaves in the order they are drawn, and
+`port_params(weights)`, the same tensors in repro_torch's parameter
+tree. `logits(weights, cfg, tokens)` reads that dict and the
+configuration file's published keys; `quant="fp8"` fake-quantises both
+operands of every weight product to float8 e4m3 (per row of the
+activations, per output column of the weights): the lower-precision
+control.
 """
 from __future__ import annotations
 
@@ -24,6 +28,56 @@ import torch
 
 F32 = torch.float32
 FP8_MAX = 448.0
+FFN = ("w_gate", "w_up", "w_down")
+
+
+def mlp_leaves(cfg, dtype) -> list:
+    """The SwiGLU MLP's stacked leaves (see `leaves`)."""
+    layers, d = cfg["num_hidden_layers"], cfg["hidden_size"]
+    f = cfg["intermediate_size"]
+    return [("w_gate", (layers, d, f), d ** -0.5, dtype),
+            ("w_up", (layers, d, f), d ** -0.5, dtype),
+            ("w_down", (layers, f, d), f ** -0.5, dtype)]
+
+
+def leaves(cfg, vocab_rows: int, ffn=mlp_leaves) -> list:
+    """(name, shape, scale, dtype) of each leaf, in the order the seed
+    draws them, each a standard normal times `scale`: projections
+    stacked over the layers in the served type at 1/sqrt(fan-in), the
+    embedding (`vocab_rows`, the port's padded table) at 1, the RMSNorm
+    offsets in float32 at 0.1, `ffn(cfg, dtype)`'s leaves after the
+    second norm, the output head last at 1/sqrt(d). The untied model's:
+    with `tie_word_embeddings` the harness draws one table as the head
+    is drawn, in the embedding's place, and hands it to both."""
+    dtype = getattr(torch, cfg["torch_dtype"])
+    layers, d = cfg["num_hidden_layers"], cfg["hidden_size"]
+    nh, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    hd = cfg["head_dim"]
+    return [("embed", (vocab_rows, d), 1.0, dtype),
+            ("norm1", (layers, d), 0.1, F32),
+            ("wq", (layers, d, nh, hd), d ** -0.5, dtype),
+            ("wk", (layers, d, nkv, hd), d ** -0.5, dtype),
+            ("wv", (layers, d, nkv, hd), d ** -0.5, dtype),
+            ("wo", (layers, nh, hd, d), (nh * hd) ** -0.5, dtype),
+            ("q_norm", (layers, hd), 0.1, F32),
+            ("k_norm", (layers, hd), 0.1, F32),
+            ("norm2", (layers, d), 0.1, F32),
+            *ffn(cfg, dtype),
+            ("final_norm", (d,), 0.1, F32),
+            ("unembed", (vocab_rows, d), d ** -0.5, dtype)]
+
+
+def port_params(w: dict, ffn=FFN) -> dict:
+    """`w`'s tensors in repro_torch's parameter tree (one stacked run of
+    attention blocks, the feed-forward leaves `ffn`), without copies."""
+    run = {"norm1": {"scale": w["norm1"]},
+           "attn": {k: w[k] for k in ("wq", "wk", "wv", "wo", "q_norm",
+                                      "k_norm")},
+           "norm2": {"scale": w["norm2"]},
+           "ffn": {k: w[k] for k in ffn}}
+    return {"embed": {"table": w["embed"]}, "runs": (run,),
+            "final_norm": {"scale": w["final_norm"]},
+            "unembed": {"table": w["unembed"]}}
 
 
 @contextlib.contextmanager

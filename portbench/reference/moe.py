@@ -9,7 +9,8 @@ expert index), weighted by the softmax over the chosen logits when
 otherwise; each chosen expert's SwiGLU computed only on the tokens
 routed to it. Float32 with TF32 off. OLMoE's block normalises the whole
 q and k projections instead of each head, which this reference does not
-compute.
+compute. Its leaves are the dense block's with the MLP's replaced by a
+router and the experts' stacked SwiGLU weights.
 """
 from __future__ import annotations
 
@@ -20,6 +21,27 @@ import torch
 from portbench.reference import dense
 
 F32 = torch.float32
+FFN = ("router",) + dense.FFN
+
+
+def expert_leaves(cfg, dtype) -> list:
+    """The router's and the experts' stacked leaves (`dense.leaves`)."""
+    layers, d = cfg["num_hidden_layers"], cfg["hidden_size"]
+    e, f = cfg["num_experts"], cfg["intermediate_size"]
+    return [("router", (layers, d, e), d ** -0.5, dtype),
+            ("w_gate", (layers, e, d, f), d ** -0.5, dtype),
+            ("w_up", (layers, e, d, f), d ** -0.5, dtype),
+            ("w_down", (layers, e, f, d), f ** -0.5, dtype)]
+
+
+def leaves(cfg, vocab_rows: int) -> list:
+    """The leaves the seed draws, in order (`dense.leaves`)."""
+    return dense.leaves(cfg, vocab_rows, ffn=expert_leaves)
+
+
+def port_params(w: dict) -> dict:
+    """`w` in repro_torch's parameter tree (`dense.port_params`)."""
+    return dense.port_params(w, FFN)
 
 
 def route(w, cfg, layer, h):

@@ -5,8 +5,9 @@
 
 Runs `harness.run_cell` as `run.py` does, with a `SpanRecorder` of the
 port active over the window's calls (the set-up's warm call runs
-without it), and prints `run.py`'s result line with one more key,
-`spans`:
+without it): with `--trace 1` the one the harness's traced run makes
+active itself, with `--trace 0` one of this script's. It prints
+`run.py`'s result line with one more key, `spans`:
 
 - `per_step`: the recorder's events per window step, and `span_us`:
   the host microseconds of one span, entered and left, with no recorder
@@ -21,8 +22,9 @@ without it), and prints `run.py`'s result line with one more key,
 
 With `--trace 0` the recorder's cost shows in `tokens_per_s` against an
 untraced run of `run.py`. The harness's files are used as they are: the
-recorder and the traced run's profiler are reached by wrapping
-`harness.make_entry` and `harness.Tracer` for this process alone.
+untraced run's recorder is made active by wrapping `harness.make_entry`,
+and the traced run's recorder and profiler are reached by wrapping
+`harness.Tracer`, for this process alone.
 """
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ SPAN_METRICS = ("schedule_ms_per_step", "store_launches_per_request",
 
 @contextmanager
 def recording(harness, rec):
-    """Patch `harness` for one run: every call of the cell's entry after
-    the first (the set-up's warm call) runs with `rec` active; the
-    traced run's `Tracer` is appended to the list this yields."""
+    """Patch `harness` for one run: unless `rec` is None, every call of
+    the cell's entry after the first (the set-up's warm call) runs with
+    `rec` active; the traced run's `Tracer` is appended to the list this
+    yields."""
     make_entry, tracer_cls = harness.make_entry, harness.Tracer
     tracers = []
 
@@ -63,7 +66,9 @@ def recording(harness, rec):
                 return call(prompts, new_tokens, recorder)
         return recorded
 
-    harness.make_entry, harness.Tracer = make, KeptTracer
+    harness.Tracer = KeptTracer
+    if rec is not None:
+        harness.make_entry = make
     try:
         yield tracers
     finally:
@@ -133,11 +138,12 @@ def run_spans(spec: dict, seed: int, seconds: float, trace: bool, device,
     """`harness.run_cell` with the spans on; its result with `spans`."""
     from portbench import harness
     from repro_torch.runtime.obs import SpanRecorder
-    rec = SpanRecorder()
+    rec = None if trace else SpanRecorder()
     with recording(harness, rec) as tracers:
         result = harness.run_cell(spec, seed, seconds, trace, device, t0)
-    result["spans"] = readings(spec, rec.events,
-                               tracers[0] if tracers else None)
+    tracer = tracers[0] if tracers else None
+    events = tracer.recorder.events if trace else rec.events
+    result["spans"] = readings(spec, events, tracer)
     return result
 
 

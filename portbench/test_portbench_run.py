@@ -56,7 +56,8 @@ def test_result_line_schema(entry, trace):
         assert {"step_ms_p95", "model_ms_per_step",
                 "step_mfu"} <= set(line["metrics"])
         if entry == "serve_batch_paged":
-            assert "store_ms_per_step" in line["metrics"]
+            assert {"store_ms_per_step",
+                    "schedule_ms_per_step"} <= set(line["metrics"])
     else:
         assert set(line["metrics"]) == {m["name"]
                                          for m in bench["end_to_end"]}
@@ -100,9 +101,30 @@ def test_no_card_no_result():
     assert proc.returncode != 0 and proc.stdout.strip() == ""
 
 
-def _run(spec):
-    return harness.run_cell(spec, 2 ** 31 + 9, 0.1, False, "cpu",
+def _run(spec, trace=False):
+    return harness.run_cell(spec, 2 ** 31 + 9, 0.1, trace, "cpu",
                             time.perf_counter())
+
+
+@pytest.mark.parametrize("trace", [False, True])
+def test_only_a_traced_run_records_layer_spans(trace, monkeypatch):
+    from repro_torch.runtime import obs
+    made = []
+
+    class Counted(obs.SpanRecorder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+    monkeypatch.setattr(obs, "SpanRecorder", Counted)
+    result = _run(smoke.spec(), trace)
+    assert result["correct"]
+    layer = [r for r in made
+             if any(e["name"] == "store.schedule" for e in r.events)]
+    if trace:
+        assert len(layer) == 1
+        assert "schedule_ms_per_step" in result["metrics"]
+    else:
+        assert made == []
 
 
 def test_sound_run_is_correct():

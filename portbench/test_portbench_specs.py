@@ -89,6 +89,48 @@ def test_metric_reader_exists(metric):
                for n in tree.body)
 
 
+def test_each_cell_reports_what_its_layer_metrics_move():
+    cells = [w["name"] for w in BENCH["workloads"]]
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert set(m.get("workloads", cells)) <= set(cells), m["name"]
+    for name in cells:
+        spec = cell.load(name)
+        e2e = {m["name"] for m in spec["end_to_end"]}
+        for m in spec["per_layer"]:
+            assert m["moves"] in e2e, (name, m["name"])
+
+
+LOCAL_KV = [m["name"] for m in BENCH["per_layer"]
+            if m["name"].endswith(".local_kv")
+            and m["name"] != "tokens_per_s.local_kv"]
+
+
+@pytest.mark.parametrize("metric", LOCAL_KV)
+def test_local_kv_twin_reads_as_its_base(metric):
+    from portbench.harness import load_metric
+    ctx = {"model_s": [0.08, 0.09], "step_ms": [80.0, 90.0, 100.0],
+           "call_flops": [1e12, 2e12], "traced_flops": 1e11,
+           "call_s": [10.0, 5.0], "traced_s": 1.0,
+           "trace": {"busy_s": 0.2, "window_s": 1.0},
+           "span_events": None, "span_devices": None,
+           "trace_steps": [24, 32]}
+    base = metric[:-len(".local_kv")]
+    assert load_metric(metric)(ctx) == load_metric(base)(ctx)
+
+
+def test_local_kv_rate_leaves_out_the_profiled_call():
+    from portbench.harness import load_metric
+    read = load_metric("tokens_per_s.local_kv")
+    tr = {"batch": 16, "calls": [[15, 196], [10, 55], [8, 20]]}
+    ctx = {"traffic": tr, "trace_steps": [24, 32],
+           "call_s": [30.0, 5.0, 2.0, 4.0]}
+    # call 0 holds steps 24-31; call 3 runs the mix's first lengths again
+    assert read(ctx) == pytest.approx(16 * (65 + 28 + 211) / 11.0)
+    assert read({**ctx, "trace_steps": [211, 212]}) == \
+        pytest.approx(16 * (211 + 28 + 211) / 36.0)
+    assert read({**ctx, "call_s": [30.0]}) is None
+
+
 def test_reference_imports_nothing_of_the_program():
     for path in (HERE / "reference").glob("*.py"):
         tree = ast.parse(path.read_text())

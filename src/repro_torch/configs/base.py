@@ -47,6 +47,13 @@ SMOKE_SHAPES = {
 }
 
 
+# ArchConfig's options that the JAX package's has not, at the values that
+# keep its block (Qwen3-MoE's routing, per-head q/k norms, eps 1e-6);
+# OLMoE's published block is {False, "full", 1e-5}
+PORT_OPTIONS = {"norm_topk_prob": True, "qk_norm_width": "head",
+                "norm_eps": 1e-6}
+
+
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
@@ -59,11 +66,21 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 0                 # 0 -> d_model // num_heads
     qk_norm: bool = False
+    # "head": q and k RMS-normalised per head with (head_dim,) scales;
+    # "full": over the whole (num_heads * head_dim,) q and (num_kv_heads *
+    # head_dim,) k projections before the split into heads (OLMoE)
+    qk_norm_width: str = "head"
     rope_theta: float = 1e6
+    # eps of the attention blocks' RMSNorms (norm1, norm2, the q/k norms)
+    # and of the final norm; the SSM and xLSTM blocks keep their own
+    norm_eps: float = 1e-6
     # --- MoE ---
     num_experts: int = 0
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
+    # True: the chosen experts weighted by the softmax over their k
+    # logits; False: by the softmax over all experts, not renormalised
+    norm_topk_prob: bool = True
     # --- SSM / hybrid ---
     ssm_state: int = 0
     ssm_conv_width: int = 4
@@ -111,7 +128,8 @@ class ArchConfig:
             if kind == ATTN:
                 counts += d * hd * (nh + 2 * nkv) + nh * hd * d  # qkv + o
                 if self.qk_norm:
-                    counts += 2 * hd
+                    counts += (nh + nkv) * hd if self.qk_norm_width == \
+                        "full" else 2 * hd
                 counts += 2 * d  # 2 norms
                 counts += self._ffn_params(active_only)
             elif kind == MAMBA2:

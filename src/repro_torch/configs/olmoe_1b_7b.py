@@ -1,6 +1,16 @@
 """olmoe-1b-7b — MoE, 64 experts top-8 [arXiv:2409.02060; hf].
 
 16L d_model=2048 16H (GQA kv=16) expert d_ff=1024 vocab=50304.
+
+This entry is the JAX package's block at OLMoE's sizes: Qwen3-MoE's
+(the chosen experts weighted by the softmax over their 8 logits, q and k
+normalised per head, RMSNorm eps 1e-6), which the JAX parity tests hold
+it to. OLMoE's published block is these sizes with three options of
+``ArchConfig``: ``norm_topk_prob=False`` (the softmax over all 64
+experts), ``qk_norm_width="full"`` (q and k normalised over their whole
+2048-wide projections) and ``norm_eps=1e-5``, as the benchmark's
+``portbench/configs/olmoe-1b-7b.json`` sets them in its
+``port_overrides``.
 """
 from repro_torch.configs.base import ArchConfig
 

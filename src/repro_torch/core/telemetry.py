@@ -23,11 +23,12 @@ the reference computes it; the reference's dropping scatters become
 masked adds.
 
 `span(name, **counts)` marks a layer boundary of the host loops (the
-serve loops, the model's decode, the store's step and its parts; the
-names are in ``runtime.obs``). It is off by default: with no recorder
-active (`recording`, which ``runtime.obs.SpanRecorder.active`` enters)
-and no `torch.profiler` running it returns one shared no-op context.
-Otherwise it records on the active recorder and, under a profiler,
+serve loops, the model's decode and its MoE layers, the store's step and
+its parts; the names are in ``runtime.obs``), and `note(name, **counts)`
+adds counts that the layer learns inside it. It is off by default: with
+no recorder active (`recording`, which ``runtime.obs.SpanRecorder.active``
+enters) and no `torch.profiler` running it returns one shared no-op
+context. Otherwise it records on the active recorder and, under a profiler,
 opens a `record_function` range of the same name. A span never
 synchronises the device and never reads a device value.
 """
@@ -287,3 +288,14 @@ def span(name: str, **args):
     if rec is None and not _profiler._is_profiler_enabled:
         return _NO_SPAN
     return _Span(rec, name, args)
+
+
+def note(name: str, **args):
+    """Add `args` to the innermost open span of the active recorder if
+    that span is `name`; nothing without a recorder. A value may be a
+    function of no arguments (a count of device values, say): the
+    recorder calls it only when its events are read, after the run, so
+    the layer neither reads a device value nor queues work for it."""
+    rec = _recorder
+    if rec is not None:
+        rec.note_span(name, args)

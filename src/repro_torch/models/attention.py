@@ -2,7 +2,8 @@
 training, and decode (one new token against a KV cache).
 
 PyTorch counterpart of ``repro.models.attention``, written as the
-reference's math: project, RMS-normalise q and k, RoPE, expand the KV
+reference's math: project, RMS-normalise q and k (per head, or over
+the whole projection with `qk_norm_width` "full"), RoPE, expand the KV
 heads, scaled scores in f32, mask, softmax, weighted sum, output
 projection; cross attention (whisper's decoder over its encoder) has
 no RoPE and no q/k norms. The blockwise path keeps the reference's
@@ -25,11 +26,24 @@ from repro_torch.runtime.mesh_rules import constrain, run_local
 NEG_INF = -1e30
 
 
+def _qk_norm_widths(cfg):
+    """(q_norm width, k_norm width): one head's (`qk_norm_width` "head")
+    or the whole projection's ("full")."""
+    hd = cfg.resolved_head_dim
+    if cfg.qk_norm_width == "head":
+        return hd, hd
+    if cfg.qk_norm_width == "full":
+        return cfg.num_heads * hd, cfg.num_kv_heads * hd
+    raise ValueError(f"qk_norm_width must be head|full, got "
+                     f"{cfg.qk_norm_width!r}")
+
+
 def init_attention(gen: torch.Generator, cfg, *, cross: bool = False,
                    layers: int = 0, dtype=F32):
     """Projections wq (D,NH,H), wk/wv (D,K,H), wo (NH,H,D) in `dtype`;
-    with cfg.qk_norm, f32 q_norm/k_norm scales, which a cross-attention
-    block (`cross`) does not have."""
+    with cfg.qk_norm, f32 q_norm/k_norm scales ((H,) each, or (NH*H,) and
+    (K*H,) with `qk_norm_width` "full"), which a cross-attention block
+    (`cross`) does not have."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {"wq": normal(gen, (d, nh, hd), layers=layers, dtype=dtype),
@@ -37,14 +51,16 @@ def init_attention(gen: torch.Generator, cfg, *, cross: bool = False,
          "wv": normal(gen, (d, nkv, hd), layers=layers, dtype=dtype),
          "wo": normal(gen, (nh, hd, d), layers=layers, dtype=dtype)}
     if cfg.qk_norm and not cross:
-        full = ((layers,) if layers else ()) + (hd,)
-        p["q_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
-        p["k_norm"] = torch.zeros(full, dtype=F32, device=gen.device)
+        lead = (layers,) if layers else ()
+        qw, kw = _qk_norm_widths(cfg)
+        p["q_norm"] = torch.zeros(lead + (qw,), dtype=F32, device=gen.device)
+        p["k_norm"] = torch.zeros(lead + (kw,), dtype=F32, device=gen.device)
     return p
 
 
 def attention_axes(cfg, *, cross: bool = False):
-    """Logical axes of `init_attention`'s parameters."""
+    """Logical axes of `init_attention`'s parameters; the q/k norm scales
+    are replicated at either width."""
     a = {"wq": ("fsdp", "tensor", None), "wk": ("fsdp", "tensor_kv", None),
          "wv": ("fsdp", "tensor_kv", None), "wo": ("tensor", None, "fsdp")}
     if cfg.qk_norm and not cross:
@@ -53,14 +69,23 @@ def attention_axes(cfg, *, cross: bool = False):
     return a
 
 
+def qk_norm(t, scale, cfg):
+    """RMSNorm of q or k (B,T,N,H) with its scale, per head or, with
+    `qk_norm_width` "full", over the whole N*H projection (the same
+    element order, so a view); eps `cfg.norm_eps`."""
+    if cfg.qk_norm_width == "full":
+        return rms_norm(t.flatten(-2), scale, cfg.norm_eps).view(t.shape)
+    return rms_norm(t, scale, cfg.norm_eps)
+
+
 def _project_qkv(params, cfg, x, kv_x, positions, kv_positions, use_rope):
     dtype = x.dtype
     q = dot(x, params["wq"].to(dtype), "bsd,dnh->bsnh").to(dtype)
     k = dot(kv_x, params["wk"].to(dtype), "btd,dkh->btkh").to(dtype)
     v = dot(kv_x, params["wv"].to(dtype), "btd,dkh->btkh").to(dtype)
     if "q_norm" in params:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        q = qk_norm(q, params["q_norm"], cfg)
+        k = qk_norm(k, params["k_norm"], cfg)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)

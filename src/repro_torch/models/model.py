@@ -42,7 +42,7 @@ from repro_torch.models.attention import (attention, attention_axes,
                                           decode_attention,
                                           decode_cross_attention,
                                           init_attention, init_kv_cache,
-                                          kv_cache_axes)
+                                          kv_cache_axes, qk_norm)
 from repro_torch.models.layers import (F32, apply_rope, dot, embed,
                                        embedding_axes, init_embedding,
                                        init_mlp, init_rms_norm, mlp,
@@ -214,7 +214,8 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
     if kind != ATTN:
         raise ValueError(kind)
     rdt = torch.bfloat16 if opt.tp_reduce_bf16 else None
-    h = rms_norm(x, p["norm1"]["scale"])
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["norm1"]["scale"], eps)
     y = attention(p["attn"], cfg, h, positions=positions, causal=causal,
                   window=window, flash_threshold=opt.flash_threshold,
                   triangular=opt.triangular_flash, reduce_dtype=rdt)
@@ -223,7 +224,7 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
         dt = h.dtype
         k = dot(h, p["attn"]["wk"].to(dt), "btd,dkh->btkh").to(dt)
         if "k_norm" in p["attn"]:
-            k = rms_norm(k, p["attn"]["k_norm"])
+            k = qk_norm(k, p["attn"]["k_norm"], cfg)
         k = apply_rope(k, positions if positions is not None
                        else torch.arange(h.shape[1], device=h.device),
                        cfg.rope_theta)
@@ -231,10 +232,10 @@ def _apply_block(kind, p, cfg, x, opt, *, causal=True, window=0, enc=None,
         kv = {"k": k.to(dt), "v": v.to(dt)}
     x = x + y
     if enc is not None:
-        h = rms_norm(x, p["norm_x"]["scale"])
+        h = rms_norm(x, p["norm_x"]["scale"], eps)
         x = x + attention(p["xattn"], cfg, h, kv_x=enc, causal=False,
                           flash_threshold=opt.flash_threshold)
-    h = rms_norm(x, p["norm2"]["scale"])
+    h = rms_norm(x, p["norm2"]["scale"], eps)
     if cfg.is_moe:
         y, aux = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
     else:
@@ -362,7 +363,7 @@ def _encode(params, cfg, frontend, opt):
     x = frontend.to(getattr(torch, cfg.dtype))
     x, _, _ = _run_scan(params["encoder"]["runs"], ATTN, x, cfg, opt,
                         causal=False)
-    return rms_norm(x, params["encoder"]["norm"]["scale"])
+    return rms_norm(x, params["encoder"]["norm"]["scale"], cfg.norm_eps)
 
 
 def _embed_inputs(params, cfg, batch, opt):
@@ -387,7 +388,7 @@ def forward(params, cfg: ArchConfig, batch, opt: ModelOptions):
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, _ = _forward_stack(params, cfg, x, opt, positions=positions,
                                enc=enc)
-    x = rms_norm(x, params["final_norm"]["scale"])
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["unembed"], x), aux
 
 
@@ -510,15 +511,16 @@ def _decode_block(kind, p, cfg, x, state, pos, opt, window):
         return x + y, state
     if kind != ATTN:
         raise ValueError(kind)
-    h = rms_norm(x, p["norm1"]["scale"])
+    eps = cfg.norm_eps
+    h = rms_norm(x, p["norm1"]["scale"], eps)
     y, _ = decode_attention(p["attn"], cfg, h, state, pos, window=window,
                             ring=opt.window_ring and window > 0)
     x = x + y
     if "xk" in state:
-        h = rms_norm(x, p["norm_x"]["scale"])
+        h = rms_norm(x, p["norm_x"]["scale"], eps)
         x = x + decode_cross_attention(p["xattn"], cfg, h,
                                        {"k": state["xk"], "v": state["xv"]})
-    h = rms_norm(x, p["norm2"]["scale"])
+    h = rms_norm(x, p["norm2"]["scale"], eps)
     if cfg.is_moe:
         y, _ = moe_mod.moe(p["ffn"], cfg, h, impl=opt.moe_impl)
     else:
@@ -556,7 +558,7 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
                     x, _ = _decode_block(kind, _layer(run_params, i), cfg, x,
                                          _layer(run_state, i), pos, opt,
                                          window)
-        x = rms_norm(x, params["final_norm"]["scale"])
+        x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         logits = unembed(params["unembed"], x)[:, 0, :]
     return logits, state
 
@@ -592,5 +594,5 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int,
                 f"raise max_len")
         run_state["k"][:, :, :t] = kv["k"]
         run_state["v"][:, :, :t] = kv["v"]
-    x = rms_norm(x, params["final_norm"]["scale"])
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params["unembed"], x), state

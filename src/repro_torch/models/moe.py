@@ -20,7 +20,14 @@ PyTorch counterpart of ``repro.models.moe``. Two implementations:
 Top-k ties go to the lower expert index, as `jax.lax.top_k` breaks them:
 the k experts are the first k of a stable descending sort, which orders
 alike on the CPU and on the card (`torch.topk` does not promise an order
-among equal values).
+among equal values). The chosen experts are weighted by the softmax over
+their k logits, or with `cfg.norm_topk_prob` False (OLMoE) by the
+softmax over all the experts' logits, not renormalised.
+
+`moe` is one layer's call, inside the layer span `model.moe` (tokens,
+experts, k; and `routed`, the number of distinct experts the tokens were
+routed to, which the span's recorder reads from the routing only when
+its events are read, so the step reads no device value for it).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.core import telemetry
 from repro_torch.models.layers import F32, dot, normal, silu
 from repro_torch.runtime.mesh_rules import (active_mesh, axis_group,
                                             axis_index, axis_size,
@@ -63,13 +71,19 @@ def top_k_lowest_first(x, k: int):
 
 def _route(params, cfg, x):
     """Returns (weights (B,S,k) f32, idx (B,S,k) int64, aux_loss scalar):
-    softmax over the k largest router logits, and the Switch-style
-    load-balance loss E * sum_e importance_e * load_e."""
+    the k largest router logits' experts, weighted by the softmax over
+    those k logits (`cfg.norm_topk_prob`) or over all of them, and the
+    Switch-style load-balance loss E * sum_e importance_e * load_e."""
     logits = dot(x, params["router"].to(x.dtype), "bsd,de->bse")
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
     top_w, top_i = top_k_lowest_first(logits, k)
-    top_w = torch.softmax(top_w, dim=-1)
+    if cfg.norm_topk_prob:
+        top_w = torch.softmax(top_w, dim=-1)
+    else:
+        top_w = probs.gather(-1, top_i)
+    telemetry.note("model.moe",
+                   routed=lambda: int(torch.unique(top_i).numel()))
     e = cfg.num_experts
     importance = probs.mean(dim=(0, 1))
     flat = top_i.reshape(-1)
@@ -352,8 +366,12 @@ def _moe_ep_local_map(params, cfg, x, w, idx, mesh, tspec, axis_name):
 
 
 def moe(params, cfg, x, impl: str = "dense"):
-    if impl == "ep":
-        return moe_ep(params, cfg, x)
-    if impl != "dense":
+    """One MoE layer, x (B,S,D) -> ((B,S,D), aux), by `impl` ("dense":
+    `moe_dense`, "ep": `moe_ep`), inside its `model.moe` span."""
+    if impl not in ("dense", "ep"):
         raise ValueError(f"moe impl must be dense|ep, got {impl!r}")
-    return moe_dense(params, cfg, x)
+    with telemetry.span("model.moe", tokens=x.shape[0] * x.shape[1],
+                        experts=cfg.num_experts, k=cfg.experts_per_token):
+        if impl == "ep":
+            return moe_ep(params, cfg, x)
+        return moe_dense(params, cfg, x)

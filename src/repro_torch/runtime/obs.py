@@ -25,6 +25,9 @@ span's id as `parent`, the id of the `serve.call` it sits under as
   `serve_replicated` (entry, batch, prompt, new_tokens);
 - `serve.step`: each token step of those loops (phase, step, tokens);
 - `model.decode`: `models.model.decode_step` (batch);
+- `model.moe`: each MoE layer's call, `models.moe.moe` (tokens,
+  experts, k; `routed`, the distinct experts the tokens were routed
+  to, counted from the routing when the events are read);
 - `store.step`: the store's step, `daemon_store._step` (requests), and
   inside it its parts `store.residency` (the residency transaction),
   `store.remote_fetch`, `store.writebacks`, `store.schedule` and
@@ -77,9 +80,22 @@ class SpanRecorder:
 
     def __init__(self, pid: int = 0):
         self.pid = pid
-        self.events: list = []
-        self._open: list = []          # (id, call) of the open layer spans
+        self._events: list = []
+        self._deferred: list = []      # events with counts still to read
+        self._open: list = []          # (id, call, name, counts) open
         self._ids = itertools.count(1)
+
+    @property
+    def events(self) -> list:
+        """The events, each deferred count (``core.telemetry.note``) read
+        now, once."""
+        for event in self._deferred:
+            args = event["args"]
+            for key, value in args.items():
+                if callable(value):
+                    args[key] = _jsonable(value())
+        self._deferred.clear()
+        return self._events
 
     def _event(self, name, t_start_ns, tid, args) -> dict:
         return {"name": name, "ph": "X", "ts": t_start_ns / 1e3,
@@ -96,7 +112,7 @@ class SpanRecorder:
         finally:
             if sync.get("sync") is not None:
                 _synchronize(sync["sync"])
-            self.events.append(self._event(name, t_start, tid, args))
+            self._events.append(self._event(name, t_start, tid, args))
 
     def active(self):
         """Context: this recorder takes ``core.telemetry.span``'s layer
@@ -107,21 +123,32 @@ class SpanRecorder:
         """Enter a layer span (``core.telemetry.span``); returns the
         token `close_span` takes."""
         sid = next(self._ids)
-        parent, call = self._open[-1] if self._open else (None, None)
+        parent, call = self._open[-1][:2] if self._open else (None, None)
         if name == telemetry.CALL_SPAN:
             call = sid
-        self._open.append((sid, call))
+        counts = dict(counts)
+        self._open.append((sid, call, name, counts))
         return name, counts, sid, parent, call, time.time_ns()
+
+    def note_span(self, name: str, counts: dict):
+        """Add `counts` to the innermost open layer span if it is `name`
+        (``core.telemetry.note``)."""
+        if self._open and self._open[-1][2] == name:
+            self._open[-1][3].update(counts)
 
     def close_span(self, token):
         name, counts, sid, parent, call, t_start = token
         self._open.pop()
-        self.events.append(self._event(
-            name, t_start, 0, {"id": sid, "parent": parent, "call": call,
-                               **counts}))
+        event = self._event(name, t_start, 0, {"id": sid, "parent": parent,
+                                               "call": call, **counts})
+        if any(callable(v) for v in counts.values()):
+            self._deferred.append(event)
+        self._events.append(event)
 
 
 def _jsonable(v):
+    if callable(v):
+        return v                       # a deferred count, read later
     if isinstance(v, torch.Tensor):
         return v.tolist()
     if isinstance(v, (np.generic, np.ndarray)):

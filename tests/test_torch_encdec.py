@@ -20,7 +20,7 @@ from repro.models import attention as JA
 from repro.models import model as JMod
 from repro_torch import convert
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import PORT_OPTIONS, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TMod
@@ -271,5 +271,7 @@ def test_pipeline_frontend_shapes(arch):
 def test_reduced_configs_keep_their_frontends():
     for arch in FRONTEND_ARCHS:
         a, b = j_get_config(arch).reduced(), get_config(arch).reduced()
-        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        mine = dataclasses.asdict(b)
+        assert {k: mine.pop(k) for k in PORT_OPTIONS} == PORT_OPTIONS
+        assert dataclasses.asdict(a) == mine
         assert b.frontend and _frontend_rows(b) > 0

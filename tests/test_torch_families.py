@@ -29,7 +29,7 @@ from repro.runtime.serve_loop import ServeConfig as JServe
 from repro.runtime.serve_loop import serve_batch_paged as j_serve
 from repro_torch import convert
 from repro_torch.configs import get_config, get_shape, list_archs
-from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.configs.base import ATTN, PORT_OPTIONS, ArchConfig
 from repro_torch.core.compute_plane import tree_map
 from repro_torch.core.daemon_store import KVStoreConfig
 from repro_torch.data.pipeline import DataConfig, synthetic_batch
@@ -118,7 +118,11 @@ def _assert_trees(a, b, **tol):
 def test_config_equals_reference(arch):
     for j, t in ((j_get_config(arch), get_config(arch)),
                  (j_get_config(arch).reduced(), get_config(arch).reduced())):
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        # the port's own options, at the values that keep the reference's
+        # block, and every field of the reference's, equal
+        mine = dataclasses.asdict(t)
+        assert {k: mine.pop(k) for k in PORT_OPTIONS} == PORT_OPTIONS
+        assert mine == dataclasses.asdict(j)
         for active in (False, True):
             assert t.param_count(active) == j.param_count(active)
 

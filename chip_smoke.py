@@ -29,7 +29,13 @@ page rows and are held bit for bit there), with a full-width one-pass
 prefill of whisper's 1500 audio frames and internvl2's 256 patches
 (`[prefill_frontends]`). Then it holds `layers.dot` of bf16 operands
 at qwen3-1.7b's MLP shape to the f32 sum of the exact products
-(`[dot_f32_accum]`) and the two tensor-parallel model options on a
+(`[dot_f32_accum]`: at decode's 8 rows the decode matmul kernel's sum,
+within f32 accumulation error of the f64 product; at a train
+microbatch's 1024 rows the widened product bit for bit), the decode
+matmul kernel at each weight product of qwen3-1.7b's and olmoe-1b-7b's
+decode at B = 16, timed against its bound, its plain version and
+torch's bf16 product with f32 output (`[decode_matmul]`), and the two
+tensor-parallel model options on a
 reduced forward to the option off and to the CPU (`[model_options]`),
 and trains: the card against the CPU on
 reduced qwen3-1.7b, and four steps at full width with the
@@ -101,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -145,6 +152,7 @@ from repro_torch.core.telemetry import (TelemetryConfig,  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, synthetic_batch  # noqa
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import bdi as BDI  # noqa: E402
+from repro_torch.kernels import decode_matmul as DM  # noqa: E402
 from repro_torch.kernels import paged_gather as PG  # noqa: E402
 from repro_torch.kernels import qdq_int8 as QD  # noqa: E402
 from repro_torch.kernels import ref as REF  # noqa: E402
@@ -267,7 +275,11 @@ def device_phase():
     return name, smi
 
 
-KERNELS = (PG.KERNEL, RF.KERNEL, SF.KERNEL) + QD.KERNELS + BDI.KERNELS
+KERNELS = ((PG.KERNEL, RF.KERNEL, SF.KERNEL, DM.KERNEL) + QD.KERNELS
+           + BDI.KERNELS)
+# the decode matmul kernel's launches on each serve path (the serve
+# phases fill it)
+DM_LAUNCHES = {}
 
 
 def build_phase():
@@ -609,6 +621,7 @@ def serve_phase():
     PG.KERNEL.launches = 0
     RF.KERNEL.launches = 0
     SF.KERNEL.launches = 0
+    DM.KERNEL.launches = 0
     t0 = time.perf_counter()
     tokens, led = serve_batch_paged(params, cfg, prompts, scfg, store,
                                     SERVE_PAGED)
@@ -617,11 +630,16 @@ def serve_phase():
     counts = {"paged_gather": PG.KERNEL.launches,
               "fused_residency_step": RF.KERNEL.launches,
               "schedule_fold": SF.KERNEL.launches}
+    DM_LAUNCHES["serve_batch_paged"] = DM.KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
     steps = SERVE_PROMPT + SERVE_NEW
     r = SERVE_PAGED.window_pages
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
+    per_step = 7 * cfg.num_layers + 1       # q, k, v, o, MLP; the head
+    if DM.KERNEL.launches <= 0 or DM.KERNEL.launches % per_step:
+        raise AssertionError(f"{DM.KERNEL.launches} decode matmul "
+                             f"launches, not {per_step} a decode step")
     if counts["schedule_fold"] != steps:
         raise AssertionError(f"{counts['schedule_fold']} folds for {steps} "
                              "store steps")
@@ -1372,6 +1390,7 @@ def serve_replicated_phase(cfg, params, prompts):
         PG.KERNEL.launches = 0
         RF.KERNEL.launches = 0
         SF.KERNEL.launches = 0
+        DM.KERNEL.launches = 0
         t0 = time.perf_counter()
         tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
                                        REP_C, SERVE_PAGED)
@@ -1380,6 +1399,7 @@ def serve_replicated_phase(cfg, params, prompts):
         counts = {"paged_gather": PG.KERNEL.launches,
                   "fused_residency_step": RF.KERNEL.launches,
                   "schedule_fold": SF.KERNEL.launches}
+        DM_LAUNCHES["serve_replicated"] = DM.KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
     r = SERVE_PAGED.window_pages
     if set(counts.values()) != {steps}:
@@ -1454,6 +1474,7 @@ def serve_replicated_mesh_phase(cfg, params, prompts, rep_result):
         PG.KERNEL.launches = 0
         RF.KERNEL.launches = 0
         SF.KERNEL.launches = 0
+        DM.KERNEL.launches = 0
         t0 = time.perf_counter()
         tokens, led = serve_replicated(params, cfg, prompts, scfg, store,
                                        REP_C, SERVE_PAGED, mesh=mesh)
@@ -1462,6 +1483,7 @@ def serve_replicated_mesh_phase(cfg, params, prompts, rep_result):
         counts = {"paged_gather": PG.KERNEL.launches,
                   "fused_residency_step": RF.KERNEL.launches,
                   "schedule_fold": SF.KERNEL.launches}
+        DM_LAUNCHES["serve_replicated_mesh"] = DM.KERNEL.launches
     if not torch.equal(tokens, want_tokens):
         raise AssertionError("mesh tokens differ from [serve_replicated]'s")
     if led != want_led:
@@ -1780,10 +1802,11 @@ def dot_phase(gen):
     """`layers.dot` of bf16 operands at qwen3-1.7b's MLP up-projection
     (d 2048 x d_ff 6144; B·S = 8 as at decode, and 1024 as in a train
     microbatch), with f32 matmuls at torch's default precision: the f32
-    sum of the exact products, bit-equal to the product of the widened
-    operands and within f32 accumulation error (d * 2^-24 * sum|a||b|)
-    of the f64 product, unlike the bf16-rounded GEMM output it replaces.
-    Times both on the card (CUDA graph)."""
+    sum of the exact products, within f32 accumulation error (d * 2^-24 *
+    sum|a||b|) of the f64 product and nearer it than the bf16-rounded
+    GEMM output it replaces; at 8 rows the decode matmul kernel's sum (in
+    its own order), at 1024 rows bit-equal to the product of the widened
+    operands. Times both on the card (CUDA graph)."""
     cfg = get_config("qwen3-1.7b")
     d, f = cfg.d_model, cfg.d_ff
     if torch.backends.cuda.matmul.allow_tf32 or \
@@ -1802,12 +1825,19 @@ def dot_phase(gen):
         scale = torch.einsum(DOT_SPEC, x.double().abs(), w.double().abs())
         err = (got.double() - exact).abs()
         rounded = torch.einsum(DOT_SPEC, x, w).float()   # before the repair
-        if got.dtype != torch.float32 or not torch.equal(got, widened):
+        kernel = name == "decode"
+        if got.dtype != torch.float32 or (
+                not kernel and not torch.equal(got, widened)):
             raise AssertionError(f"{name}: dot is not the widened product")
         if not bool((err <= d * 2.0 ** -24 * scale).all()):
             raise AssertionError(f"{name}: dot outside f32 accumulation "
                                  "error of the f64 product")
+        rounded_err = (rounded.double() - exact).abs().max()
+        if torch.equal(got, rounded) or not err.max() < rounded_err:
+            raise AssertionError(f"{name}: dot no nearer the f64 product "
+                                 "than the bf16-rounded output")
         out[name] = dict(
+            route="decode_matmul" if kernel else "widened",
             max_err_vs_f64=float(err.max()),
             max_diff_vs_bf16_rounded=float((got - rounded).abs().max()),
             bf16_rounded_max_err_vs_f64=float(
@@ -1819,6 +1849,128 @@ def dot_phase(gen):
           float32_matmul_precision=torch.get_float32_matmul_precision(),
           **{f"{n}_{k}": (f"{v:.6g}" if isinstance(v, float) else v)
              for n, r in out.items() for k, v in r.items()})
+
+
+DM_B = 16                        # the benchmark cells' batch
+
+
+def decode_matmul_cases():
+    """(name, spec, activation shape, weight shape) of each weight product
+    of qwen3-1.7b's and olmoe-1b-7b's decode at B = 16."""
+    cases = []
+    for arch, short in (("qwen3-1.7b", "qwen3"), ("olmoe-1b-7b", "olmoe")):
+        cfg = get_config(arch)
+        d, nh, nkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        hd, f = cfg.resolved_head_dim, cfg.d_ff
+        x = (DM_B, 1, d)
+        cases += [(f"{short}.q", "bsd,dnh->bsnh", x, (d, nh, hd)),
+                  (f"{short}.kv", "btd,dkh->btkh", x, (d, nkv, hd)),
+                  (f"{short}.o", "bsnh,nhd->bsd", (DM_B, 1, nh, hd),
+                   (nh, hd, d))]
+        if cfg.is_moe:
+            e = cfg.num_experts
+            cases += [(f"{short}.router", "bsd,de->bse", x, (d, e)),
+                      (f"{short}.experts_in", "bsd,edf->bsef", x, (e, d, f)),
+                      (f"{short}.experts_out", "bsef,efd->bsed",
+                       (DM_B, 1, e, f), (e, f, d))]
+        else:
+            cases += [(f"{short}.gate_up", "bsd,df->bsf", x, (d, f)),
+                      (f"{short}.down", "bsf,fd->bsd", (DM_B, 1, f), (f, d))]
+        cases.append((f"{short}.head", "bsd,vd->bsv", x,
+                      (padded_vocab(cfg.vocab_size), d)))
+    return cases
+
+
+def library_product(spec, a, w):
+    """torch's bf16 product with f32 output (`out_dtype`) of the same
+    weight product, or None where this torch has none: a yardstick, no
+    path of the port calls it."""
+    p = DM.plan(a, w, spec)
+    a3 = a.as_strided((p.e, p.m, p.k1 * p.k2), p.a_strides[:2] + (1,))
+    w3 = (w.as_strided((p.e, p.n, p.k1 * p.k2), p.w_strides[:2] + (1,))
+          .transpose(1, 2) if p.nk
+          else w.as_strided((p.e, p.k1 * p.k2, p.n),
+                            (p.w_strides[0], p.w_strides[2], 1)))
+    try:
+        if p.e == 1:
+            fn = functools.partial(torch.mm, a3[0], w3[0],
+                                   out_dtype=torch.float32)
+        else:
+            fn = functools.partial(torch.bmm, a3, w3,
+                                   out_dtype=torch.float32)
+        fn()
+    except (TypeError, RuntimeError):
+        return None
+    return fn
+
+
+def decode_matmul_phase():
+    """The decode matmul kernel at each weight product of the two cells'
+    decode (B = 16): within f32 accumulation error of the f64 product
+    (K * 2^-24 * sum|a||w|), not the bf16-rounded output and nearer the
+    f64 product than it, the plain version within the same bound, and two
+    launches bit-identical; timed (CUDA graph) against its bound (its
+    bf16 operands read once and its f32 output written once at 3.35
+    TB/s), the plain version, and torch's bf16 product with f32 output.
+    Returns the kernel's record for the kernel line."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    rows = {}
+    worst = 0.0
+    for name, spec, sa, sw in decode_matmul_cases():
+        a = torch.empty(sa, dtype=torch.bfloat16, device=DEV).uniform_(
+            -1, 1, generator=gen)
+        w = (torch.empty(sw, dtype=torch.bfloat16, device=DEV).uniform_(
+            -1, 1, generator=gen))
+        p = DM.plan(a, w, spec)
+        if p is None:
+            raise AssertionError(f"{name}: the kernel does not take it")
+        got = DM.decode_matmul(a, w, spec)
+        if not torch.equal(got, DM.decode_matmul(a, w, spec)):
+            raise AssertionError(f"{name}: two launches differ")
+        exact = torch.einsum(spec, a.double(), w.double())
+        scale = torch.einsum(spec, a.double().abs(), w.double().abs())
+        k = p.k1 * p.k2
+        bound = k * 2.0 ** -24 * scale
+        err = (got.double() - exact).abs()
+        plain = REF.decode_matmul(a, w, spec)
+        rounded = torch.einsum(spec, a, w).float()
+        rounded_err = float((rounded.double() - exact).abs().max())
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name}: outside f32 accumulation error")
+        if not bool(((plain.double() - exact).abs() <= bound).all()):
+            raise AssertionError(f"{name}: plain outside the bound")
+        if torch.equal(got, rounded) or not float(err.max()) < rounded_err:
+            raise AssertionError(f"{name}: no nearer the f64 product than "
+                                 "the bf16-rounded output")
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        worst = max(worst, rel)
+        del exact, scale, bound, err, plain, rounded
+        nbytes = (a.numel() + w.numel()) * 2 + got.numel() * 4
+        lib = library_product(spec, a, w)
+        t = {"ms": device_ms(lambda: DM.decode_matmul(a, w, spec)),
+             "bound_ms": nbytes / HBM_BYTES_PER_MS,
+             "plain_ms": device_ms(lambda: REF.decode_matmul(a, w, spec),
+                                   iters=2, replays=2),
+             "library_ms": None if lib is None else device_ms(lib),
+             "call_ms": call_ms(lambda: dot(a, w, spec))}
+        t["share"] = t["bound_ms"] / t["ms"]
+        rows[name] = t
+        phase("decode_matmul", product=name, spec=spec,
+              e=p.e, m=p.m, k=k, n=p.n, layout="NK" if p.nk else "KN",
+              cluster=p.ks, bytes=nbytes,
+              max_err_over_scale=f"{rel:.3g}",
+              bf16_rounded_max_err=f"{rounded_err:.4g}",
+              **{key: (f"{v:.5f}" if isinstance(v, float) else v)
+                 for key, v in t.items()})
+        del a, w, got
+    return {
+        "name": "decode_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_matmul.cu",
+        "replaces": "none: the reference's jnp.einsum(preferred_element_"
+                    "type=F32); the port's widened f32 einsum in "
+                    "layers.dot",
+        "max_err_over_scale": worst, "products": rows,
+    }
 
 
 OPTION_TOL = 2.0 ** -8           # of the largest logit: one bf16 ulp of it
@@ -2841,6 +2993,7 @@ def serve_family_phase(arch):
     PG.KERNEL.launches = 0
     RF.KERNEL.launches = 0
     SF.KERNEL.launches = 0
+    DM.KERNEL.launches = 0
     t0 = time.perf_counter()
     tokens, led = serve_batch_paged(params, cfg, prompts, scfg, store,
                                     SERVE_PAGED)
@@ -2849,6 +3002,7 @@ def serve_family_phase(arch):
     counts = {"paged_gather": PG.KERNEL.launches,
               "fused_residency_step": RF.KERNEL.launches,
               "schedule_fold": SF.KERNEL.launches}
+    DM_LAUNCHES[f"serve_{short}"] = DM.KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
     steps = prompt_len + new
     r = SERVE_PAGED.window_pages
@@ -3344,6 +3498,9 @@ def run(name, smi):
     k3q, k3d = qdq_phase(gen)
     k4c, k4d = bdi_phase(gen, kcache)
     dot_phase(gen)
+    dm = decode_matmul_phase()
+    dm["launches"] = DM_LAUNCHES["serve_batch_paged"]
+    dm["launches_by_path"] = dict(DM_LAUNCHES)
     model_options_phase()
     train_reference_phase()
     dist_counts = train_reference_dist_phase()
@@ -3380,7 +3537,7 @@ def run(name, smi):
     mesh_lattice_phase(sim_axes_phase())
     sim_fig8_phase()
     print(smi)
-    print(json.dumps({"kernels": [k1, k2, sf, k3q, k3d, k4c, k4d]}))
+    print(json.dumps({"kernels": [k1, k2, sf, dm, k3q, k3d, k4c, k4d]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bdi as _bdi
+from repro_torch.kernels import decode_matmul as _dm
 from repro_torch.kernels import paged_gather as _pg
 from repro_torch.kernels import qdq_int8 as _qdq
 from repro_torch.kernels import ref as _ref
@@ -103,6 +104,16 @@ def residency_fused(res, kpool, vpool, remote_k, remote_v, landed,
           else _ref.fused_residency_step)
     return fn(res, kpool, vpool, remote_k, remote_v, landed, landed_pages,
               needed_pages, needed_writes, clock, pol)
+
+
+def decode_matmul(a, w, spec: str, plan=None, impl: str = "auto"):
+    """The f32 product of bf16 `a` and `w` by `spec`, one of decode's
+    weight-product forms (`decode_matmul.FORMS`); `plan` is
+    `decode_matmul.plan(a, w, spec)` where the caller has it. See
+    ref.decode_matmul for the contract."""
+    fn = (_dm.decode_matmul if _use_kernel(a, impl)
+          else _ref.decode_matmul)
+    return fn(a, w, spec, plan)
 
 
 def schedule_fold(eng, fab, needed_pages, needed_offsets, local_hit, clock,

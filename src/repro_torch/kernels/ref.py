@@ -19,6 +19,10 @@ the card) and what the wrappers in `ops` run on CPU tensors. They follow
 kernel ``csrc/schedule_fold.cu``, and what ``daemon_store._schedule``
 runs on CPU tensors.
 
+`decode_matmul` is decode's weight product: the plain version of the
+kernel ``csrc/decode_matmul.cu``, the operands widened to f32 through
+the kernel's own plan.
+
 `decode_attention_paged` is the reference's paged-decode oracle. It has
 no kernel, and no serve path calls it.
 """
@@ -32,6 +36,7 @@ from repro_torch.core import compute_plane, fabric, residency
 from repro_torch.core.engine import (EngineState, _at, find, gate_tree,
                                      schedule_line, schedule_page,
                                      select_granularity, utilization)
+from repro_torch.kernels import decode_matmul as _dm
 
 F32 = torch.float32
 I32 = torch.int32
@@ -301,6 +306,28 @@ def schedule_fold(eng: EngineState, fab: fabric.FabricState, needed_pages,
     return (eng, fab, nic, torch.stack(lines).reshape(shape),
             torch.stack(pages).reshape(shape),
             torch.stack(stalls).reshape(shape), seen)
+
+
+def decode_matmul(a, w, spec: str, p=None):
+    """The f32 product of bf16 `a` and `w` by `spec` (one of
+    `decode_matmul.FORMS`), read through the kernel's plan `p`: the
+    operands are the plan's strided views (E, M, K1, K2) and (E, K1, K2,
+    N) or (E, N, K1, K2), widened to f32, and the product is written
+    through the plan's output strides. Summed in the order
+    ``torch.einsum`` takes the spec's contraction letters, it equals
+    `layers.dot`'s widened einsum bit for bit. Raises where `plan` gives
+    None."""
+    if p is None:
+        p = _dm.require_plan(a, w, spec)
+    a4 = a.as_strided((p.e, p.m, p.k1, p.k2), p.a_strides)
+    w4 = w.as_strided((p.e, p.n, p.k1, p.k2) if p.nk
+                      else (p.e, p.k1, p.k2, p.n), p.w_strides)
+    out = torch.empty(p.out_shape, dtype=F32, device=a.device)
+    o3 = out.as_strided((p.e, p.m, p.n), p.out_strides + (1,))
+    k1, k2 = "ji" if p.k2_first else "ij"
+    wk = f"en{k1}{k2}" if p.nk else f"e{k1}{k2}n"
+    o3.copy_(torch.einsum(f"em{k1}{k2},{wk}->emn", a4.to(F32), w4.to(F32)))
+    return out
 
 
 def decode_attention_paged(q, kpages, vpages, page_table, lengths):

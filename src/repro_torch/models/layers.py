@@ -19,8 +19,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.core.compute_plane import tree_leaves, tree_map
+from repro_torch.kernels import decode_matmul as _dm
+from repro_torch.kernels import ops
 from repro_torch.runtime.mesh_rules import (constrain, is_axes_leaf,
                                             is_dtensor, named_sharding,
                                             outside_fake_mode)
@@ -190,17 +194,59 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+class DotCounts:
+    """`dot`'s weight products (`decode_matmul.FORMS`) on CUDA tensors:
+    `kernel` went through the decode matmul kernel, `widened` through
+    the widened einsum. Plain counts, never reset here."""
+    kernel = 0
+    widened = 0
+
+
+dot_counts = DotCounts()
+
+
+def _on_card(a, b) -> bool:
+    return a.is_cuda and b.is_cuda
+
+
+def _kernel_plan(a, b, spec):
+    """The decode matmul kernel's plan of a weight product on the card, or
+    None where `dot` widens: an operand that is not bf16, needs a
+    gradient under grad mode, is a DTensor or a fake tensor, a dispatch
+    mode that would not see the kernel (a fake mode, an op counter), or
+    a product the kernel does not take (`decode_matmul.plan`: more than
+    64 rows, among others)."""
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or (torch.is_grad_enabled()
+                and (a.requires_grad or b.requires_grad))
+            or is_dtensor(a) or is_dtensor(b)
+            or isinstance(a, FakeTensor) or isinstance(b, FakeTensor)
+            or _get_current_dispatch_mode() is not None):
+        return None
+    return _dm.plan(a, b, spec)
+
+
 def dot(a, b, spec, out_dtype=F32):
     """einsum with f32 accumulation, returned as `out_dtype` (the
     reference's `preferred_element_type`). For f32 the operands are
     widened to f32 first: a bf16 x bf16 product is exact in f32, so the
     result is the f32 sum of the exact products, never a bf16-rounded
     GEMM output (f32 products do not use TF32 unless the caller turns
-    `torch.backends.cuda.matmul.allow_tf32` on). A narrower `out_dtype`
-    (bf16, `ModelOptions.tp_reduce_bf16`) is the product in the operands'
-    dtype rounded once to it: on f32 operands the f32 product rounded,
-    as XLA computes it; on bf16 operands the GEMM's own bf16 output."""
+    `torch.backends.cuda.matmul.allow_tf32` on). On the card a weight
+    product of decode (`_kernel_plan`) is the same sum, in another order
+    of the f32 additions, from one hand-written kernel that reads each
+    operand once in bf16 (`ops.decode_matmul`); `dot_counts` counts both
+    routes. A narrower `out_dtype` (bf16, `ModelOptions.tp_reduce_bf16`)
+    is the product in the operands' dtype rounded once to it: on f32
+    operands the f32 product rounded, as XLA computes it; on bf16
+    operands the GEMM's own bf16 output."""
     if out_dtype == F32:
+        if _dm.form_of(spec) is not None and _on_card(a, b):
+            plan = _kernel_plan(a, b, spec)
+            if plan is not None:
+                dot_counts.kernel += 1
+                return ops.decode_matmul(a, b, spec, plan)
+            dot_counts.widened += 1
         return torch.einsum(spec, a.to(F32), b.to(F32))
     return torch.einsum(spec, a, b).to(out_dtype)
 

@@ -43,8 +43,8 @@ from repro_torch.models.attention import (attention, attention_axes,
                                           decode_cross_attention,
                                           init_attention, init_kv_cache,
                                           kv_cache_axes, qk_norm)
-from repro_torch.models.layers import (F32, apply_rope, dot, embed,
-                                       embedding_axes, init_embedding,
+from repro_torch.models.layers import (F32, apply_rope, dot, dot_counts,
+                                       embed, embedding_axes, init_embedding,
                                        init_mlp, init_rms_norm, mlp,
                                        mlp_axes, rms_norm, rms_norm_axes,
                                        softmax_xent, stacked_axes, unembed)
@@ -534,8 +534,13 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
     The KV caches and recurrent states in `state` are written in place.
     Its layer span (``telemetry.span``) is `model.decode`.
 
+    The span notes `dot_kernel` and `dot_widened`, the step's weight
+    products that went through the decode matmul kernel and that widened
+    on the card (`layers.dot_counts`).
+
     Returns (logits (B, vocab_padded) f32, state)."""
     with telemetry.span("model.decode", batch=tokens.shape[0]):
+        kernel0, widened0 = dot_counts.kernel, dot_counts.widened
         dtype = getattr(torch, cfg.dtype)
         x = _residual(embed(params["embed"], tokens, dtype))
         window = _window(cfg, opt)
@@ -560,6 +565,9 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos: int,
                                          window)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         logits = unembed(params["unembed"], x)[:, 0, :]
+        telemetry.note("model.decode",
+                       dot_kernel=dot_counts.kernel - kernel0,
+                       dot_widened=dot_counts.widened - widened0)
     return logits, state
 
 

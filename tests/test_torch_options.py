@@ -45,9 +45,16 @@ def _check_f32_accumulation(got, a, b):
     """`got` is the f32 sum of the exact products of bf16 `a`, `b`: equal
     to the widened f32 product, within f32 accumulation error of the f64
     one, and not the bf16-rounded GEMM output."""
+    assert torch.equal(got, torch.einsum(SPEC, a.float(), b.float()))
+    _check_f32_sum(got, a, b)
+
+
+def _check_f32_sum(got, a, b):
+    """`got` is an f32 sum of the exact products of bf16 `a`, `b`, in any
+    order: within f32 accumulation error of the f64 product, not the
+    bf16-rounded GEMM output, and nearer the f64 product than it."""
     a32, b32 = a.float(), b.float()
     assert got.dtype == torch.float32
-    assert torch.equal(got, torch.einsum(SPEC, a32, b32))
     exact = torch.einsum(SPEC, a32.double(), b32.double())
     scale = torch.einsum(SPEC, a32.double().abs(), b32.double().abs())
     k = a.shape[-1]
@@ -73,14 +80,21 @@ def test_dot_on_bf16_operands_accumulates_exact_products_in_f32():
 
 @pytest.mark.cuda
 def test_dot_on_bf16_operands_on_card():
-    """The same at qwen3-1.7b's MLP shape on the card (B·S = 8, 2048 x
-    6144), with `allow_tf32` at its default."""
+    """The same at qwen3-1.7b's MLP shape on the card, with `allow_tf32`
+    at its default: at decode's B·S = 8 rows the decode matmul kernel's
+    f32 sum, in its own order of the additions; at a train microbatch's
+    1 x 1024 rows the widened product, bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py's [dot_f32_accum] "
                     "runs this check on the card")
     a, b = (t.cuda() for t in _operands((8, 1, 2048), (2048, 6144), BF16))
+    with torch.no_grad():
+        got = dot(a, b, SPEC)
+    _check_f32_sum(got.cpu(), a.cpu(), b.cpu())
+    a, b = (t.cuda() for t in _operands((1, 1024, 2048), (2048, 6144), BF16))
     got = dot(a, b, SPEC)
-    _check_f32_accumulation(got.cpu(), a.cpu(), b.cpu())
+    assert torch.equal(got, torch.einsum(SPEC, a.float(), b.float()))
+    _check_f32_sum(got.cpu(), a.cpu(), b.cpu())
 
 
 def _bf16_ulp(x):
